@@ -1,0 +1,482 @@
+"""On-GPU smoke run of the PyTorch port (video_super_resolution_tpu_torch).
+
+    python3 chip_smoke.py
+
+Needs one CUDA card and the CUDA toolkit (nvcc); it imports neither JAX nor
+the JAX package. Phases, each of which fails the run on error:
+
+1. build: compile the three CUDA kernels from ``csrc/`` (nvcc, sm_90a),
+   print the build seconds and the card's name and power limit;
+2. serving forward: ``serving_config()`` with seeded random weights, bf16,
+   one (1, 3, 540, 960, 3) window through ``api.eval_step`` ->
+   (1, 2160, 3840, 3); every launch counter is set to 0 just before and
+   read just after, and each kernel must have launched; the output must be
+   finite and in [0, 1]; the shapes each kernel was called with are
+   recorded;
+3. kernels: at every shape the forward gave each kernel, the kernel is held
+   against its plain PyTorch version, in f32 (TF32 off; rtol 1e-4,
+   atol 1e-4) and in bf16 (rtol 2e-2, atol 2e-2), and timed with CUDA
+   events beside the plain version, one PyTorch library call where one
+   computes the same function (F.conv2d, F.grid_sample), and the least
+   time the card could take (bytes / 3.35 TB/s vs FLOP / peak rate);
+4. throughput: median and p75 per-forward time of 40 back-to-back bf16
+   forwards (CUDA events), frames/s, peak device memory; then one forward
+   under torch.profiler for device time by kernel group and idle share;
+5. f32 parity: the f32 serving forward through the kernels against the
+   same forward through the plain versions on the card (rtol 2e-3,
+   atol 5e-4), and a small window on the card against the CPU path.
+
+The last two lines are the ``{"kernels": [...]}`` summary (per-forward
+totals over the recorded shapes) and ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import dataclasses
+import inspect
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_S = 3.35e12                       # H100 SXM HBM3
+PEAK_FLOPS = {torch.bfloat16: 989e12,           # dense tensor-core bf16
+              torch.float32: 67e12}             # f32 outside the tensor cores
+TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
+MODEL_TOL = (2e-3, 5e-4)                        # composed-model rtol, atol
+WINDOW = (1, 3, 540, 960, 3)
+TIMED_FORWARDS = 40
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def cuda_ms(fn, reps=None):
+    """Mean device time of fn() in ms, by CUDA events, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    if reps is None:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        reps = max(3, min(50, int(0.05 / max(time.perf_counter() - t0, 1e-6))))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+class Kernels:
+    """The port's kernels, their plain versions and the model call sites
+    that reach them."""
+
+    def __init__(self):
+        from video_super_resolution_tpu_torch.models import common, flow_net, fusion, vsr
+        from video_super_resolution_tpu_torch.ops import correlation, fused_conv, warp
+
+        self.wrappers = {"conv3x3": fused_conv.fused_conv3x3,
+                         "correlation": correlation.correlation,
+                         "warp": warp.backward_warp}
+        self.plain = {"conv3x3": fused_conv.conv3x3_plain,
+                      "correlation": correlation.correlation_plain,
+                      "warp": warp.warp_plain}
+        self.sources = {
+            "conv3x3": ("video_super_resolution_tpu_torch/csrc/conv3x3.cu",
+                        "video_super_resolution_tpu/ops/pallas/fused_conv.py:383"),
+            "correlation": ("video_super_resolution_tpu_torch/csrc/correlation.cu",
+                            "video_super_resolution_tpu/ops/pallas/correlation_tpu.py:63"),
+            "warp": ("video_super_resolution_tpu_torch/csrc/warp.cu",
+                     "video_super_resolution_tpu/ops/pallas/warp_shift_tpu.py:197"),
+        }
+        self.sites = [(common, "fused_conv3x3", "conv3x3"),
+                      (fusion, "fused_conv3x3", "conv3x3"),
+                      (flow_net, "correlation", "correlation"),
+                      (flow_net, "backward_warp", "warp"),
+                      (vsr, "backward_warp", "warp")]
+
+    def reset(self):
+        for fn in self.wrappers.values():
+            fn.launches = 0
+
+    def counts(self):
+        return {k: fn.launches for k, fn in self.wrappers.items()}
+
+    @contextlib.contextmanager
+    def patched(self, make):
+        """Replace each call site's function by make(name, original)."""
+        saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in self.sites]
+        try:
+            for mod, attr, name in self.sites:
+                setattr(mod, attr, make(name, self.wrappers[name]))
+            yield
+        finally:
+            for mod, attr, fn in saved:
+                setattr(mod, attr, fn)
+
+    def recording(self, calls):
+        """Call sites go through the kernels; calls[name] counts each call's
+        argument spec."""
+        def make(name, fn):
+            sig = inspect.signature(fn)
+
+            def rec(*args, **kw):
+                bound = sig.bind(*args, **kw)
+                bound.apply_defaults()
+                calls[name][spec_of(name, bound.arguments)] += 1
+                return fn(*args, **kw)
+            return rec
+        return self.patched(make)
+
+    def plain_path(self):
+        """Call sites run the plain PyTorch versions on the card."""
+        from video_super_resolution_tpu_torch.ops.pixel_shuffle import pixel_shuffle
+
+        def make(name, fn):
+            plain = self.plain[name]
+            if name != "conv3x3":
+                return plain
+
+            def conv(x, w, b, slope=0.1, dilation=1, res=None, res_repeat=1,
+                     shuffle=False):
+                out = plain(x, w, b, slope, dilation, res, res_repeat)
+                return pixel_shuffle(out, 2) if shuffle else out
+            return conv
+        return self.patched(make)
+
+
+def spec_of(name, a):
+    if name == "conv3x3":
+        res = a["res"]
+        return (tuple(a["x"].shape), a["x"].dtype, a["w"].shape[0],
+                a["dilation"], float(a["slope"]),
+                None if res is None else (tuple(res.shape), res.dtype),
+                a["res_repeat"])
+    if name == "correlation":
+        return (tuple(a["f1"].shape), a["f1"].dtype, a["max_displacement"])
+    return (tuple(a["img"].shape), a["img"].dtype, a["padding_mode"])
+
+
+def make_case(name, spec, dtype, gen):
+    """Random inputs of a recorded spec, cast to dtype; returns the wrapper
+    arguments, a library callable or None, FLOP and bytes."""
+    import torch.nn.functional as F
+
+    dev = "cuda"
+
+    def rn(shape, dt):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    if name == "conv3x3":
+        xs, _, cout, d, slope, res, rr = spec
+        b, h, w, cin = xs
+        x = rn(xs, dtype)
+        wt = rn((cout, cin, 3, 3), torch.float32) / math.sqrt(9 * cin)
+        bias = rn((cout,), dtype) * 0.1
+        r = None
+        if res is not None:
+            rdt = torch.float32 if res[1] == torch.float32 else dtype
+            r = rn(res[0], rdt)
+        args = (x, wt, bias, slope, d, r, rr)
+        wl, bl = wt.to(dtype), bias.to(dtype)
+        xn = x.permute(0, 3, 1, 2)
+        lib = lambda: F.conv2d(xn, wl, bl, padding=d, dilation=d)  # noqa: E731
+        flops = 2 * b * h * w * cout * 9 * cin
+        nbytes = (x.numel() * x.element_size() + wl.numel() * wl.element_size()
+                  + cout * 4 + b * h * w * cout * x.element_size()
+                  + (0 if r is None else r.numel() * r.element_size()))
+        return args, lib, flops, nbytes
+    if name == "correlation":
+        xs, _, d = spec
+        b, h, w, c = xs
+        f1, f2 = rn(xs, dtype), rn(xs, dtype)
+        k = (2 * d + 1) ** 2
+        flops = 2 * b * h * w * c * k
+        nbytes = 2 * f1.numel() * f1.element_size() + b * h * w * k * 4
+        return (f1, f2, d), None, flops, nbytes
+    xs, _, mode = spec
+    b, h, w, c = xs
+    img = rn(xs, dtype)
+    flow = rn((b, h, w, 2), torch.float32) * 3.0
+    ys = torch.arange(h, device=dev, dtype=torch.float32)[:, None]
+    xg = torch.arange(w, device=dev, dtype=torch.float32)[None, :]
+    grid = torch.stack([(xg + flow[..., 0]) * 2 / max(w - 1, 1) - 1,
+                        (ys + flow[..., 1]) * 2 / max(h - 1, 1) - 1], -1)
+    imn = img.permute(0, 3, 1, 2)
+    grid = grid.to(dtype)
+    lib = lambda: F.grid_sample(imn, grid, mode="bilinear",  # noqa: E731
+                                padding_mode=mode, align_corners=True)
+    flops = 7 * b * h * w * c
+    nbytes = 2 * img.numel() * img.element_size() + flow.numel() * 4
+    return (img, flow, mode), lib, flops, nbytes
+
+
+def bound_ms(flops, nbytes, dtype):
+    t_ops = flops / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def phase_build():
+    from video_super_resolution_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _build.lib()
+    log(f"[build] {len([p for p in _build.sources() if p.suffix == '.cu'])} "
+        f"sources -> {_build.build_info['path']} in "
+        f"{time.perf_counter() - t0:.2f} s (nvcc {_build.build_info['seconds']:.2f} s, "
+        f"cached={_build.build_info['cached']})")
+    for src, text in sorted(_build.build_info.get("ptxas", {}).items()):
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {src}: {line.strip()}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    return card
+
+
+def phase_forward(kernels):
+    from video_super_resolution_tpu_torch import api, serving_config
+
+    cfg = serving_config()
+    model = api.build_model(cfg, device="cuda", seed=0)
+    gen = torch.Generator().manual_seed(1)
+    window = torch.rand(WINDOW, generator=gen).cuda()
+    calls = collections.defaultdict(collections.Counter)
+    with kernels.recording(calls):
+        kernels.reset()
+        hr = api.eval_step(model, window)
+        torch.cuda.synchronize()
+        counts = kernels.counts()
+    want = (1, 4 * WINDOW[2], 4 * WINDOW[3], 3)
+    log(f"[forward] bf16 serving forward {tuple(window.shape)} -> "
+        f"{tuple(hr.shape)}; launches {counts}")
+    if tuple(hr.shape) != want:
+        raise AssertionError(f"output shape {tuple(hr.shape)} != {want}")
+    if not bool(torch.isfinite(hr).all()):
+        raise AssertionError("non-finite output")
+    if float(hr.min()) < 0.0 or float(hr.max()) > 1.0:
+        raise AssertionError("eval_step output outside [0, 1]")
+    for name, n in counts.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"main path")
+        if n != sum(calls[name].values()):
+            raise AssertionError(f"{name}: {n} launches vs "
+                                 f"{sum(calls[name].values())} calls")
+    return model, window, calls, counts
+
+
+def phase_kernels(kernels, calls, counts):
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    for name in ("conv3x3", "correlation", "warp"):
+        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, lib_ms=0.0,
+                   ops_ms=0.0, bytes_ms=0.0)
+        has_lib = True
+        max_err = 0.0
+        for spec, n in sorted(calls[name].items(), key=lambda kv: str(kv[0])):
+            main_dt = spec[1]
+            for dt in (torch.float32, torch.bfloat16):
+                args, lib, flops, nbytes = make_case(name, spec, dt, gen)
+                out = kernels.wrappers[name](*args)
+                ref = kernels.plain[name](*args)
+                torch.cuda.synchronize()
+                rtol, atol = TOL[dt]
+                err = (out.float() - ref.float()).abs().max().item()
+                ok = torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol)
+                line = (f"[kernel] {name} {spec[0]} {str(dt)[6:]} "
+                        f"extra={spec[2:]} x{n}: max|diff| {err:.3e}")
+                if not ok:
+                    raise AssertionError(line + f" exceeds rtol {rtol} atol {atol}")
+                if dt != main_dt:
+                    log(line)
+                    continue
+                max_err = max(max_err, err)
+                t_k = cuda_ms(lambda: kernels.wrappers[name](*args))
+                t_p = cuda_ms(lambda: kernels.plain[name](*args))
+                t_l = cuda_ms(lib) if lib is not None else None
+                b_ms, b_by = bound_ms(flops, nbytes, dt)
+                log(line + f"; kernel {t_k:.4f} ms, plain {t_p:.4f} ms, library "
+                    f"{'null' if t_l is None else f'{t_l:.4f} ms'}, bound "
+                    f"{b_ms:.4f} ms ({b_by}), {flops / t_k / 1e9:.1f} TFLOP/s")
+                tot["ms"] += n * t_k
+                tot["plain_ms"] += n * t_p
+                tot["bound_ms"] += n * b_ms
+                tot["ops_ms"] += n * flops / PEAK_FLOPS[dt] * 1e3
+                tot["bytes_ms"] += n * nbytes / HBM_BYTES_PER_S * 1e3
+                if t_l is None:
+                    has_lib = False
+                else:
+                    tot["lib_ms"] += n * t_l
+        src, replaces = kernels.sources[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": counts[name], "max_abs_err": max_err,
+            "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": tot["bound_ms"],
+            "bound_by": ("operations" if tot["ops_ms"] > tot["bytes_ms"]
+                         else "bytes"),
+            "library_ms": tot["lib_ms"] if has_lib else None,
+        })
+        log(f"[kernel] {name} per forward: {json.dumps(rows[-1])}")
+    return rows
+
+
+def phase_throughput(model, window):
+    """Per-forward device time of back-to-back bf16 forwards (one CUDA event
+    between consecutive forwards): median and p75, the highest percentile
+    with at least ten samples above it."""
+    from video_super_resolution_tpu_torch import api
+
+    for _ in range(2):
+        api.eval_step(model, window)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(TIMED_FORWARDS + 1)]
+    t0 = time.perf_counter()
+    events[0].record()
+    for ev in events[1:]:
+        api.eval_step(model, window)
+        ev.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    times = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+    median = statistics.median(times)
+    p75 = times[TIMED_FORWARDS - 11]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[throughput] bf16 serving forward 540x960 -> 2160x3840, "
+        f"{TIMED_FORWARDS} forwards: median {median:.3f} ms/frame "
+        f"({1000.0 / median:.3f} frames/s), p75 {p75:.3f} ms, min "
+        f"{times[0]:.3f} ms, max {times[-1]:.3f} ms (CUDA events); host wall "
+        f"{wall / TIMED_FORWARDS * 1e3:.3f} ms/frame; peak memory "
+        f"{peak:.3f} GiB")
+    return median
+
+
+def phase_profile(model, window):
+    """One bf16 forward under torch.profiler: device time by kernel group
+    and the idle share between the first kernel's start and the last
+    kernel's end (one stream, so kernels do not overlap)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from video_super_resolution_tpu_torch import api
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        api.eval_step(model, window)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.time_range.end > e.time_range.start]
+    if not kernels:
+        log("[profile] the profiler recorded no device events: device time "
+            "by kernel and idle share not measured")
+        return
+    start = min(e.time_range.start for e in kernels)
+    end = max(e.time_range.end for e in kernels)
+    busy = sum(e.time_range.end - e.time_range.start for e in kernels)
+    groups = collections.Counter()
+    for e in kernels:
+        groups[kernel_group(e.name)] += e.time_range.end - e.time_range.start
+    log(f"[profile] one forward: {len(kernels)} device events, span "
+        f"{(end - start) / 1e3:.3f} ms, busy {busy / 1e3:.3f} ms, idle share "
+        f"{1 - busy / (end - start):.4f}")
+    for g, us in groups.most_common():
+        log(f"[profile] {g}: {us / 1e3:.3f} ms ({us / busy:.4f} of busy)")
+
+
+def kernel_group(name):
+    lowered = name.lower()
+    for keys, group in ((("conv3x3_kernel",), "conv3x3 (port)"),
+                        (("correlation_kernel",), "correlation (port)"),
+                        (("warp_kernel",), "warp (port)"),
+                        (("fprop", "cudnn", "conv", "implicit"),
+                         "cuDNN (stride-2 convs)"),
+                        (("gemm",), "matmul (tap-sum convs)"),
+                        (("catarray",), "concat"),
+                        (("index", "gather"), "gather/index (resize, pad)"),
+                        (("softmax", "reduce"), "reductions (softmax, sums)"),
+                        (("elementwise", "copy"), "elementwise and copies")):
+        if any(k in lowered for k in keys):
+            return group
+    return "other"
+
+
+def phase_f32(kernels, window):
+    from video_super_resolution_tpu_torch import api, serving_config
+
+    cfg = serving_config()
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                compute_dtype="float32"))
+    model = api.build_model(cfg, device="cuda", seed=0)
+    rtol, atol = MODEL_TOL
+    kernels.reset()
+    out_k = api.upscale_window(model, window)
+    n_k = sum(kernels.counts().values())
+    with kernels.plain_path():
+        kernels.reset()
+        out_p = api.upscale_window(model, window)
+        torch.cuda.synchronize()
+        if sum(kernels.counts().values()) != 0:
+            raise AssertionError("plain path launched a kernel")
+    err = (out_k - out_p).abs().max().item()
+    log(f"[f32] serving forward, kernels ({n_k} launches) vs plain on the "
+        f"card: max|diff| {err:.3e}, |out| max {out_p.abs().max().item():.3f}")
+    if not torch.allclose(out_k, out_p, rtol=rtol, atol=atol):
+        raise AssertionError(f"f32 forward exceeds rtol {rtol} atol {atol}")
+    small = torch.rand((1, 3, 64, 64, 3), generator=torch.Generator().manual_seed(3))
+    cpu_model = api.build_model(cfg, device="cpu", seed=0)
+    out_cpu = api.upscale_window(cpu_model, small)
+    out_gpu = api.upscale_window(model, small).cpu()
+    err = (out_gpu - out_cpu).abs().max().item()
+    log(f"[f32] small window (1, 3, 64, 64, 3), card vs CPU path: "
+        f"max|diff| {err:.3e}")
+    if not torch.allclose(out_gpu, out_cpu, rtol=rtol, atol=atol):
+        raise AssertionError("card vs CPU path exceeds the model tolerance")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    card = phase_build()
+    kernels = Kernels()
+    model, window, calls, counts = phase_forward(kernels)
+    rows = phase_kernels(kernels, calls, counts)
+    phase_throughput(model, window)
+    phase_profile(model, window)
+    del model
+    torch.cuda.empty_cache()
+    phase_f32(kernels, window)
+    log(f"[done] {time.perf_counter() - t0:.1f} s")
+    print(card)
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

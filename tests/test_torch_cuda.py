@@ -1,0 +1,103 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card.
+
+Marked ``cuda``: they skip without a CUDA device (the kernels have no CPU
+mode). On a GPU machine with nvcc:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda
+
+Tolerances: f32 rtol 1e-4 / atol 1e-4 (TF32 off, reassociation only), bf16
+rtol 2e-2 / atol 2e-2 (one bf16 rounding of the output).
+"""
+
+import pytest
+import torch
+
+from video_super_resolution_tpu_torch.ops.correlation import correlation, correlation_plain
+from video_super_resolution_tpu_torch.ops.fused_conv import conv3x3_plain, fused_conv3x3
+from video_super_resolution_tpu_torch.ops.warp import backward_warp, warp_plain
+
+TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+       torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def rn(gen, shape, dtype=torch.float32):
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def close(a, b, dtype):
+    torch.cuda.synchronize()
+    torch.testing.assert_close(a.float(), b.float(), **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,h,w,cin,cout,d,rr", [
+    (1, 17, 30, 3, 64, 1, 0), (2, 19, 33, 115, 48, 2, 0),
+    (2, 16, 40, 66, 64, 1, 2), (1, 9, 16, 256, 256, 16, 1)])
+def test_conv3x3_kernel_matches_plain(gen, dtype, b, h, w, cin, cout, d, rr):
+    x = rn(gen, (b, h, w, cin), dtype)
+    wt = rn(gen, (cout, cin, 3, 3)) / (9 * cin) ** 0.5
+    bias = rn(gen, (cout,), dtype)
+    res = rn(gen, (b // rr, h, w, cout), dtype) if rr else None
+    before = fused_conv3x3.launches
+    out = fused_conv3x3(x, wt, bias, 0.1, d, res, max(rr, 1))
+    assert fused_conv3x3.launches == before + 1
+    assert out.dtype == dtype and out.is_cuda
+    close(out, conv3x3_plain(x, wt, bias, 0.1, d, res, max(rr, 1)), dtype)
+
+
+@pytest.mark.cuda
+def test_conv3x3_kernel_f32_res_with_bf16_input(gen):
+    x = rn(gen, (1, 12, 20, 64), torch.bfloat16)
+    wt = rn(gen, (48, 64, 3, 3)) / 24.0
+    bias = rn(gen, (48,), torch.bfloat16)
+    res = rn(gen, (1, 12, 20, 48))
+    close(fused_conv3x3(x, wt, bias, 1.0, res=res),
+          conv3x3_plain(x, wt, bias, 1.0, res=res), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,d", [((2, 17, 30, 128), 4), ((1, 21, 70, 32), 4),
+                                     ((2, 9, 13, 16), 2), ((1, 8, 8, 20), 1)])
+def test_correlation_kernel_matches_plain(gen, dtype, shape, d):
+    f1, f2 = rn(gen, shape, dtype), rn(gen, shape, dtype)
+    before = correlation.launches
+    out = correlation(f1, f2, d)
+    assert correlation.launches == before + 1
+    close(out, correlation_plain(f1, f2, d), torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mode", ["zeros", "border"])
+@pytest.mark.parametrize("c", [4, 96])
+def test_warp_kernel_matches_plain(gen, dtype, mode, c):
+    img = rn(gen, (2, 24, 40, c), dtype)
+    flow = rn(gen, (2, 24, 40, 2)) * 6.0
+    before = backward_warp.launches
+    out = backward_warp(img, flow, mode)
+    assert backward_warp.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(out, warp_plain(img, flow, mode))
+
+
+@pytest.mark.cuda
+def test_kernels_reject_what_they_do_not_take(gen):
+    x = rn(gen, (1, 8, 8, 16))
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_conv3x3(x.transpose(1, 2), rn(gen, (8, 16, 3, 3)), rn(gen, (8,)))
+    with pytest.raises(ValueError, match="d <="):
+        correlation(x, x, 5)
+    with pytest.raises(TypeError):
+        backward_warp(x, rn(gen, (1, 8, 8, 2), torch.bfloat16))
