@@ -6,7 +6,8 @@ Needs one CUDA card and the CUDA toolkit (nvcc); it imports neither JAX nor
 the JAX package. Phases, each of which fails the run on error:
 
 1. build: compile the three CUDA kernels from ``csrc/`` (nvcc, sm_90a),
-   print the build seconds and the card's name and power limit;
+   print the build seconds, each kernel's registers and spills from ptxas
+   (flagging any spill), and the card's name and power limit;
 2. serving forward: ``serving_config()`` with seeded random weights, bf16,
    one (1, 3, 540, 960, 3) window through ``api.eval_step`` ->
    (1, 2160, 3840, 3); every launch counter is set to 0 just before and
@@ -18,7 +19,9 @@ the JAX package. Phases, each of which fails the run on error:
    atol 1e-4) and in bf16 (rtol 2e-2, atol 2e-2), and timed with CUDA
    events beside the plain version, one PyTorch library call where one
    computes the same function (F.conv2d, F.grid_sample), and the least
-   time the card could take (bytes / 3.35 TB/s vs FLOP / peak rate);
+   time the card could take (bytes / 3.35 TB/s vs FLOP / peak rate); for
+   conv3x3 also its tile plan (staging route, pixel tile, split-K factor)
+   and its rate as a share of the peak;
 4. throughput: median and p75 per-forward time of 40 back-to-back bf16
    forwards (CUDA events), frames/s, peak device memory; then one forward
    under torch.profiler for device time by kernel group and idle share;
@@ -39,6 +42,7 @@ import inspect
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -144,13 +148,20 @@ class Kernels:
         """Call sites run the plain PyTorch versions on the card."""
         from video_super_resolution_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 
+        from video_super_resolution_tpu_torch.ops.fused_conv import (
+            PreparedConv3x3,
+            unpack_conv3x3_weight,
+        )
+
         def make(name, fn):
             plain = self.plain[name]
             if name != "conv3x3":
                 return plain
 
-            def conv(x, w, b, slope=0.1, dilation=1, res=None, res_repeat=1,
-                     shuffle=False):
+            def conv(x, w, b=None, slope=0.1, dilation=1, res=None,
+                     res_repeat=1, shuffle=False):
+                if isinstance(w, PreparedConv3x3):
+                    w, b = unpack_conv3x3_weight(w), w.bias
                 out = plain(x, w, b, slope, dilation, res, res_repeat)
                 return pixel_shuffle(out, 2) if shuffle else out
             return conv
@@ -160,7 +171,9 @@ class Kernels:
 def spec_of(name, a):
     if name == "conv3x3":
         res = a["res"]
-        return (tuple(a["x"].shape), a["x"].dtype, a["w"].shape[0],
+        w = a["w"]
+        return (tuple(a["x"].shape), a["x"].dtype,
+                w.shape[0] if isinstance(w, torch.Tensor) else w.cout,
                 a["dilation"], float(a["slope"]),
                 None if res is None else (tuple(res.shape), res.dtype),
                 a["res_repeat"])
@@ -171,8 +184,12 @@ def spec_of(name, a):
 
 def make_case(name, spec, dtype, gen):
     """Random inputs of a recorded spec, cast to dtype; returns the wrapper
-    arguments, a library callable or None, FLOP and bytes."""
+    arguments, the plain version's arguments, a library callable or None,
+    FLOP and bytes. The conv's weight reaches the wrapper prepared, as the
+    model's modules hand it over, and the plain version as OIHW."""
     import torch.nn.functional as F
+
+    from video_super_resolution_tpu_torch.ops.fused_conv import prepare_conv3x3_weight
 
     dev = "cuda"
 
@@ -189,7 +206,9 @@ def make_case(name, spec, dtype, gen):
         if res is not None:
             rdt = torch.float32 if res[1] == torch.float32 else dtype
             r = rn(res[0], rdt)
-        args = (x, wt, bias, slope, d, r, rr)
+        prep = prepare_conv3x3_weight(wt, bias, dtype)
+        args = (x, prep, None, slope, d, r, rr)
+        plain_args = (x, wt, prep.bias, slope, d, r, rr)
         wl, bl = wt.to(dtype), bias.to(dtype)
         xn = x.permute(0, 3, 1, 2)
         lib = lambda: F.conv2d(xn, wl, bl, padding=d, dilation=d)  # noqa: E731
@@ -197,7 +216,7 @@ def make_case(name, spec, dtype, gen):
         nbytes = (x.numel() * x.element_size() + wl.numel() * wl.element_size()
                   + cout * 4 + b * h * w * cout * x.element_size()
                   + (0 if r is None else r.numel() * r.element_size()))
-        return args, lib, flops, nbytes
+        return args, plain_args, lib, flops, nbytes
     if name == "correlation":
         xs, _, d = spec
         b, h, w, c = xs
@@ -205,7 +224,7 @@ def make_case(name, spec, dtype, gen):
         k = (2 * d + 1) ** 2
         flops = 2 * b * h * w * c * k
         nbytes = 2 * f1.numel() * f1.element_size() + b * h * w * k * 4
-        return (f1, f2, d), None, flops, nbytes
+        return (f1, f2, d), (f1, f2, d), None, flops, nbytes
     xs, _, mode = spec
     b, h, w, c = xs
     img = rn(xs, dtype)
@@ -220,7 +239,56 @@ def make_case(name, spec, dtype, gen):
                                 padding_mode=mode, align_corners=True)
     flops = 7 * b * h * w * c
     nbytes = 2 * img.numel() * img.element_size() + flow.numel() * 4
-    return (img, flow, mode), lib, flops, nbytes
+    return (img, flow, mode), (img, flow, mode), lib, flops, nbytes
+
+
+def plan_note(name, spec, args):
+    """The conv kernel's tile plan for a recorded spec; for the padded
+    route also the same conv's time on an input padded beforehand (its
+    weight padded with zero channels), so that the difference is what the
+    staging copy costs inside the kernel's time."""
+    if name != "conv3x3":
+        return ""
+    import torch.nn.functional as F
+
+    from video_super_resolution_tpu_torch.ops import fused_conv as fc
+
+    p = fc.conv3x3_plan(spec[0], spec[2], spec[1],
+                        torch.cuda.get_device_properties(0).multi_processor_count)
+    note = (f"; plan: route {p.route} (Cx {p.cx}), kc {p.kc}, tile "
+            f"{p.th}x{p.tw} px x {p.bn} ch, {p.tiles} tiles, split-K "
+            f"{p.splits}")
+    if p.route == "tma+pad":
+        x, prep = args[0], args[1]
+        pad = (0, p.cx - x.shape[3])
+        w8 = F.pad(fc.unpack_conv3x3_weight(prep), (0, 0, 0, 0) + pad)
+        prep8 = fc.prepare_conv3x3_weight(w8, prep.bias, x.dtype)
+        x8 = F.pad(x, pad)
+        ms = cuda_ms(lambda: fc.fused_conv3x3(x8, prep8, None, *args[3:]))
+        note += f", {ms:.4f} ms on x padded beforehand"
+    return note
+
+
+def host_note(kernels, specs, gen, reps=200):
+    """Host time a call (no synchronisation inside the loop) of the conv
+    wrapper and of F.conv2d at the smallest recorded shape, where the
+    device work is least: what the forward's host path pays per conv."""
+    spec = min(specs, key=lambda sp: math.prod(sp[0]))
+    args, _, lib, _, _ = make_case("conv3x3", spec, spec[1], gen)
+
+    def host_us(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        t = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return t / reps * 1e6
+
+    k_us = host_us(lambda: kernels.wrappers["conv3x3"](*args))
+    log(f"[host] conv3x3 at {spec[0]} -> {spec[2]}: wrapper {k_us:.1f} us a "
+        f"call, F.conv2d {host_us(lib):.1f} us (host clock, {reps} calls)")
 
 
 def bound_ms(flops, nbytes, dtype):
@@ -238,15 +306,47 @@ def phase_build():
         f"sources -> {_build.build_info['path']} in "
         f"{time.perf_counter() - t0:.2f} s (nvcc {_build.build_info['seconds']:.2f} s, "
         f"cached={_build.build_info['cached']})")
+    spills = []
     for src, text in sorted(_build.build_info.get("ptxas", {}).items()):
+        fn = "?"
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {src}: {line.strip()}")
+            if "Compiling entry function" in line:
+                fn = kernel_name(line)
+            elif "spill" in line:
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+                if m and (int(m.group(1)) or int(m.group(2))):
+                    spills.append(f"{src}:{fn}")
+                    log(f"[build] SPILL {src} {fn}: {line.strip()}")
+            elif "registers" in line:
+                log(f"[build] {src} {fn}: {line.strip()}")
+    bf16_spills = [s for s in spills if "conv3x3" in s and "bfloat16" in s]
+    log(f"[build] kernels that spill: {spills or 'none'}; bf16 conv kernels "
+        f"spill-free: {not bf16_spills}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
     return card
+
+
+def kernel_name(line):
+    """Readable name of the function on a ptxas 'Compiling entry function'
+    line: the kernel's name and its template arguments."""
+    for k in ("conv3x3_kernel", "conv3x3_splitk_reduce", "correlation_kernel",
+              "warp_kernel"):
+        i = line.find(k + "I")
+        if i < 0:
+            continue
+        rest, args = line[i + len(k) + 1:], []
+        while rest and rest[0] != "E":
+            m = re.match(r"13__nv_bfloat16|f|Li(\d+)E|Lb([01])E", rest)
+            if not m:
+                break
+            args.append(m.group(1) or m.group(2)
+                        or ("bfloat16" if m.group(0)[0] == "1" else "float"))
+            rest = rest[m.end():]
+        return f"{k}<{','.join(args)}>"
+    return line.split("'")[1] if "'" in line else line.strip()
 
 
 def phase_forward(kernels):
@@ -292,9 +392,9 @@ def phase_kernels(kernels, calls, counts):
         for spec, n in sorted(calls[name].items(), key=lambda kv: str(kv[0])):
             main_dt = spec[1]
             for dt in (torch.float32, torch.bfloat16):
-                args, lib, flops, nbytes = make_case(name, spec, dt, gen)
+                args, pargs, lib, flops, nbytes = make_case(name, spec, dt, gen)
                 out = kernels.wrappers[name](*args)
-                ref = kernels.plain[name](*args)
+                ref = kernels.plain[name](*pargs)
                 torch.cuda.synchronize()
                 rtol, atol = TOL[dt]
                 err = (out.float() - ref.float()).abs().max().item()
@@ -308,12 +408,15 @@ def phase_kernels(kernels, calls, counts):
                     continue
                 max_err = max(max_err, err)
                 t_k = cuda_ms(lambda: kernels.wrappers[name](*args))
-                t_p = cuda_ms(lambda: kernels.plain[name](*args))
+                t_p = cuda_ms(lambda: kernels.plain[name](*pargs))
                 t_l = cuda_ms(lib) if lib is not None else None
                 b_ms, b_by = bound_ms(flops, nbytes, dt)
+                rate = flops / t_k / 1e9
                 log(line + f"; kernel {t_k:.4f} ms, plain {t_p:.4f} ms, library "
                     f"{'null' if t_l is None else f'{t_l:.4f} ms'}, bound "
-                    f"{b_ms:.4f} ms ({b_by}), {flops / t_k / 1e9:.1f} TFLOP/s")
+                    f"{b_ms:.4f} ms ({b_by}), {rate:.1f} TFLOP/s = "
+                    f"{rate * 1e12 / PEAK_FLOPS[dt]:.4f} of the "
+                    f"{str(dt)[6:]} peak" + plan_note(name, spec, args))
                 tot["ms"] += n * t_k
                 tot["plain_ms"] += n * t_p
                 tot["bound_ms"] += n * b_ms
@@ -323,6 +426,8 @@ def phase_kernels(kernels, calls, counts):
                     has_lib = False
                 else:
                     tot["lib_ms"] += n * t_l
+        if name == "conv3x3":
+            host_note(kernels, calls[name], gen)
         src, replaces = kernels.sources[name]
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -402,7 +507,7 @@ def phase_profile(model, window):
 
 def kernel_group(name):
     lowered = name.lower()
-    for keys, group in ((("conv3x3_kernel",), "conv3x3 (port)"),
+    for keys, group in ((("conv3x3_",), "conv3x3 (port)"),
                         (("correlation_kernel",), "correlation (port)"),
                         (("warp_kernel",), "warp (port)"),
                         (("fprop", "cudnn", "conv", "implicit"),

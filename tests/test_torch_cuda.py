@@ -13,7 +13,12 @@ import pytest
 import torch
 
 from video_super_resolution_tpu_torch.ops.correlation import correlation, correlation_plain
-from video_super_resolution_tpu_torch.ops.fused_conv import conv3x3_plain, fused_conv3x3
+from video_super_resolution_tpu_torch.ops.fused_conv import (
+    conv3x3_plain,
+    conv3x3_plan,
+    fused_conv3x3,
+    prepare_conv3x3_weight,
+)
 from video_super_resolution_tpu_torch.ops.warp import backward_warp, warp_plain
 
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
@@ -43,7 +48,23 @@ def close(a, b, dtype):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,h,w,cin,cout,d,rr", [
     (1, 17, 30, 3, 64, 1, 0), (2, 19, 33, 115, 48, 2, 0),
-    (2, 16, 40, 66, 64, 1, 2), (1, 9, 16, 256, 256, 16, 1)])
+    (2, 16, 40, 66, 64, 1, 2), (1, 9, 16, 256, 256, 16, 1),
+    # Cin a multiple of 8: x read by TMA as it is
+    (1, 8, 40, 64, 128, 1, 0), (1, 12, 24, 128, 64, 1, 1),
+    (1, 9, 20, 256, 96, 2, 0),
+    # odd Cin: channels padded to a multiple of 8 first
+    (2, 11, 37, 65, 64, 1, 2), (1, 7, 19, 565, 128, 1, 0),
+    (1, 10, 30, 3, 48, 1, 1),
+    # Cin <= 3: taps folded into 32 channels, here dilated and Cout not a
+    # multiple of 8; Cin 4 takes the padded route
+    (2, 12, 20, 3, 20, 4, 0), (1, 9, 11, 4, 72, 1, 1),
+    # Cout 48 / 32 / 20 / 200 inside or across output tiles
+    (2, 13, 21, 115, 32, 3, 0), (1, 6, 10, 32, 20, 1, 1),
+    (3, 5, 8, 24, 200, 1, 0),
+    # M and W not multiples of the tile, dilation 16 with H < 32
+    (1, 33, 70, 16, 16, 1, 0), (1, 20, 24, 96, 64, 16, 0),
+    # small M, deep K: split-K
+    (2, 17, 30, 627, 32, 1, 0), (2, 34, 60, 179, 128, 1, 0)])
 def test_conv3x3_kernel_matches_plain(gen, dtype, b, h, w, cin, cout, d, rr):
     x = rn(gen, (b, h, w, cin), dtype)
     wt = rn(gen, (cout, cin, 3, 3)) / (9 * cin) ** 0.5
@@ -64,6 +85,28 @@ def test_conv3x3_kernel_f32_res_with_bf16_input(gen):
     res = rn(gen, (1, 12, 20, 48))
     close(fused_conv3x3(x, wt, bias, 1.0, res=res),
           conv3x3_plain(x, wt, bias, 1.0, res=res), torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_conv3x3_split_k_is_reproducible(gen):
+    x = rn(gen, (2, 17, 30, 627))
+    wt = rn(gen, (32, 627, 3, 3)) / 75.0
+    bias = rn(gen, (32,))
+    assert conv3x3_plan(x.shape, 32, x.dtype).splits > 1
+    prep = prepare_conv3x3_weight(wt, bias, x.dtype)
+    a, b = fused_conv3x3(x, prep), fused_conv3x3(x, prep)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    close(a, conv3x3_plain(x, wt, bias), torch.float32)
+
+
+@pytest.mark.cuda
+def test_conv3x3_kernel_rejects_misaligned_input(gen):
+    flat = rn(gen, (8 * 8 * 16 + 1,), torch.bfloat16)
+    x = flat[1:].view(1, 8, 8, 16)           # contiguous, 2 bytes off
+    assert x.is_contiguous() and x.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):
+        fused_conv3x3(x, rn(gen, (8, 16, 3, 3)), rn(gen, (8,)))
 
 
 @pytest.mark.cuda

@@ -1,10 +1,11 @@
 """Shared building blocks of the port's model.
 
 Activations are NHWC, as in the JAX package. Each conv module owns an OIHW
-``weight`` and a ``bias`` kept in f32 and casts them to its compute dtype
-per call. Every stride-1 3x3 conv goes through ``ops.fused_conv3x3`` (the
-CUDA kernel on the card); stride-2 convs and the tiny-output convs are
-plain PyTorch, as they were plain XLA in the JAX package.
+``weight`` and a ``bias`` kept in f32. Every stride-1 3x3 conv goes through
+``ops.fused_conv3x3`` (the CUDA kernel on the card) with the weight in the
+kernel's layout, prepared once per compute dtype and kept until the
+parameters change; stride-2 convs and the tiny-output convs are plain
+PyTorch, as they were plain XLA in the JAX package.
 """
 
 from __future__ import annotations
@@ -16,7 +17,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from video_super_resolution_tpu_torch.ops.fused_conv import fused_conv3x3
+from video_super_resolution_tpu_torch.ops.fused_conv import (
+    PreparedConv3x3,
+    fused_conv3x3,
+    prepare_conv3x3_weight,
+)
 from video_super_resolution_tpu_torch.ops.resize import edge_pad
 
 
@@ -25,12 +30,31 @@ def lrelu(x: torch.Tensor, slope: float = 0.1) -> torch.Tensor:
 
 
 class _Conv3x3(nn.Module):
-    """Owns an OIHW 3x3 ``weight`` and a ``bias``, both f32."""
+    """Owns an OIHW 3x3 ``weight`` and a ``bias``, both f32, and their
+    kernel layout per compute dtype (``prepared``)."""
 
     def __init__(self, cin: int, features: int):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(features, cin, 3, 3))
         self.bias = nn.Parameter(torch.zeros(features))
+        self._prepared: dict = {}
+
+    def prepared(self, dtype: torch.dtype, cin: slice = slice(None),
+                 with_bias: bool = True) -> PreparedConv3x3:
+        """The weight's input channels ``cin`` and the bias rounded to
+        ``dtype`` (zeros if not ``with_bias``) in the kernel's layout. Built
+        on first use and rebuilt when a parameter is updated in place
+        (``_version``) or replaced or moved (``data_ptr``)."""
+        w, b = self.weight, self.bias
+        key = (dtype, cin.start, cin.stop, with_bias)
+        stamp = (w._version, w.data_ptr(), w.device, b._version, b.data_ptr())
+        hit = self._prepared.get(key)
+        if hit is None or hit[0] != stamp:
+            with torch.no_grad():
+                bias = b.to(dtype) if with_bias else torch.zeros_like(b)
+                hit = (stamp, prepare_conv3x3_weight(w[:, cin], bias, dtype))
+            self._prepared[key] = hit
+        return hit[1]
 
 
 class ConvLReLU(_Conv3x3):
@@ -51,8 +75,8 @@ class ConvLReLU(_Conv3x3):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         if self.strides == 1:
-            return fused_conv3x3(x.to(dt).contiguous(), self.weight.to(dt),
-                                 self.bias.to(dt), self.slope, self.dilation)
+            return fused_conv3x3(x.to(dt).contiguous(), self.prepared(dt),
+                                 None, self.slope, self.dilation)
         out = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), None,
                        stride=self.strides, padding=self.dilation,
                        dilation=self.dilation).permute(0, 2, 3, 1)
@@ -77,8 +101,8 @@ class RoutedConv(_Conv3x3):
     def forward(self, x: torch.Tensor,
                 res: Optional[torch.Tensor] = None) -> torch.Tensor:
         dt = self.dtype
-        out = fused_conv3x3(x.to(dt).contiguous(), self.weight.to(dt),
-                            self.bias.to(dt), 1.0, res=res)
+        out = fused_conv3x3(x.to(dt).contiguous(), self.prepared(dt), None,
+                            1.0, res=res)
         return out.to(self.out_dtype)
 
 

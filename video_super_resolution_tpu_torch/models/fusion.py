@@ -40,13 +40,12 @@ class ScoreConv(_Conv3x3):
         b, n, h, w, cn = nbr_in.shape
         dt = self.dtype
         cr = self.c_ref
-        k = self.weight.to(dt)
-        zero = torch.zeros_like(self.bias, dtype=dt)
-        s_ref = fused_conv3x3(ref_in.to(dt).contiguous(), k[:, :cr], zero, 1.0)
+        s_ref = fused_conv3x3(ref_in.to(dt).contiguous(),
+                              self.prepared(dt, slice(None, cr), False), None,
+                              1.0)
         s = fused_conv3x3(nbr_in.reshape(b * n, h, w, cn).to(dt).contiguous(),
-                          k[:, cr:],
-                          self.bias.to(dt), self.slope, res=s_ref,
-                          res_repeat=n)
+                          self.prepared(dt, slice(cr, None)), None,
+                          self.slope, res=s_ref, res_repeat=n)
         return s.reshape(b, n, h, w, -1)
 
 

@@ -33,10 +33,11 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures: every function returns cudaGetLastError() after its launch
 _SIGNATURES = {
-    # x, w (HWIO), bias (f32), res, out, B, H, W, Cin, Cout, dilation,
-    # slope, res_repeat, res_is_f32, is_bf16, stream
-    "vsr_conv3x3": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I,
-                    _I, _P],
+    # x, w (prepared), bias (f32), res, out, split-K workspace, staging
+    # scratch, fold, B, H, W, Cin, Cx, Cout, Npad, bn, kc, tw, splits,
+    # dilation, slope, res_repeat, res_is_f32, is_bf16, stream
+    "vsr_conv3x3": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                    _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     # f1, f2, out (f32), B, H, W, C, d, is_bf16, stream
     "vsr_correlation": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # img, flow (f32), out, B, H, W, C, zeros_padding, is_bf16, stream
