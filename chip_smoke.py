@@ -14,14 +14,21 @@ the JAX package. Phases, each of which fails the run on error:
    read just after, and each kernel must have launched; the output must be
    finite and in [0, 1]; the shapes each kernel was called with are
    recorded;
-3. kernels: at every shape the forward gave each kernel, the kernel is held
-   against its plain PyTorch version, in f32 (TF32 off; rtol 1e-4,
-   atol 1e-4) and in bf16 (rtol 2e-2, atol 2e-2), and timed with CUDA
-   events beside the plain version, one PyTorch library call where one
-   computes the same function (F.conv2d, F.grid_sample), and the least
-   time the card could take (bytes / 3.35 TB/s vs FLOP / peak rate); for
-   conv3x3 also its tile plan (staging route, pixel tile, split-K factor)
-   and its rate as a share of the peak;
+3. kernels: at every argument spec the forward gave each kernel (shape,
+   dtype and options, e.g. correlation's fused slope and output dtype), the
+   kernel is held against its plain PyTorch version, in f32 (TF32 off;
+   rtol 1e-4, atol 1e-4) and in bf16 (rtol 2e-2, atol 2e-2), and timed
+   beside the plain version, one PyTorch library call where one computes
+   the same function (F.conv2d, F.grid_sample), and the least time the card
+   could take (bytes / 3.35 TB/s vs FLOP / peak rate). Two times are
+   printed for each: "host-incl." is CUDA events around back-to-back
+   wrapper calls, which at small shapes measures the wrapper's host path;
+   "device" is CUDA events around the replay of a CUDA graph that captured
+   GRAPH_CALLS calls, which runs the same kernels with no host work
+   between them (warm L2 in both). The per-forward totals of the
+   ``{"kernels": ...}`` line (ms, plain_ms, library_ms) are device times.
+   For conv3x3 also its tile plan (staging route, pixel tile, split-K
+   factor) and its rate as a share of the peak;
 4. throughput: median and p75 per-forward time of 40 back-to-back bf16
    forwards (CUDA events), frames/s, peak device memory; then one forward
    under torch.profiler for device time by kernel group and idle share;
@@ -58,6 +65,7 @@ TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
 MODEL_TOL = (2e-3, 5e-4)                        # composed-model rtol, atol
 WINDOW = (1, 3, 540, 960, 3)
 TIMED_FORWARDS = 40
+GRAPH_CALLS = 10
 
 
 def log(*a):
@@ -81,6 +89,32 @@ def cuda_ms(fn, reps=None):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, replays=5):
+    """Device time of fn() in ms: GRAPH_CALLS calls captured in one CUDA
+    graph, replayed `replays` times between two CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_CALLS):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * GRAPH_CALLS)
+    del graph
+    return ms
 
 
 class Kernels:
@@ -178,7 +212,8 @@ def spec_of(name, a):
                 None if res is None else (tuple(res.shape), res.dtype),
                 a["res_repeat"])
     if name == "correlation":
-        return (tuple(a["f1"].shape), a["f1"].dtype, a["max_displacement"])
+        return (tuple(a["f1"].shape), a["f1"].dtype, a["max_displacement"],
+                a["slope"], a["out_dtype"])
     return (tuple(a["img"].shape), a["img"].dtype, a["padding_mode"])
 
 
@@ -218,13 +253,16 @@ def make_case(name, spec, dtype, gen):
                   + (0 if r is None else r.numel() * r.element_size()))
         return args, plain_args, lib, flops, nbytes
     if name == "correlation":
-        xs, _, d = spec
+        xs, in_dt, d, slope, out_dt = spec
+        od = dtype if out_dt == in_dt else out_dt   # the forward's: out = in
         b, h, w, c = xs
         f1, f2 = rn(xs, dtype), rn(xs, dtype)
         k = (2 * d + 1) ** 2
         flops = 2 * b * h * w * c * k
-        nbytes = 2 * f1.numel() * f1.element_size() + b * h * w * k * 4
-        return (f1, f2, d), (f1, f2, d), None, flops, nbytes
+        nbytes = (2 * f1.numel() * f1.element_size()
+                  + b * h * w * k * od.itemsize)
+        args = (f1, f2, d, slope, od)
+        return args, args, None, flops, nbytes
     xs, _, mode = spec
     b, h, w, c = xs
     img = rn(xs, dtype)
@@ -264,7 +302,7 @@ def plan_note(name, spec, args):
         w8 = F.pad(fc.unpack_conv3x3_weight(prep), (0, 0, 0, 0) + pad)
         prep8 = fc.prepare_conv3x3_weight(w8, prep.bias, x.dtype)
         x8 = F.pad(x, pad)
-        ms = cuda_ms(lambda: fc.fused_conv3x3(x8, prep8, None, *args[3:]))
+        ms = graph_ms(lambda: fc.fused_conv3x3(x8, prep8, None, *args[3:]))
         note += f", {ms:.4f} ms on x padded beforehand"
     return note
 
@@ -333,7 +371,7 @@ def kernel_name(line):
     """Readable name of the function on a ptxas 'Compiling entry function'
     line: the kernel's name and its template arguments."""
     for k in ("conv3x3_kernel", "conv3x3_splitk_reduce", "correlation_kernel",
-              "warp_kernel"):
+              "warp_kernel", "warp_pair_kernel"):
         i = line.find(k + "I")
         if i < 0:
             continue
@@ -407,14 +445,17 @@ def phase_kernels(kernels, calls, counts):
                     log(line)
                     continue
                 max_err = max(max_err, err)
-                t_k = cuda_ms(lambda: kernels.wrappers[name](*args))
-                t_p = cuda_ms(lambda: kernels.plain[name](*pargs))
-                t_l = cuda_ms(lib) if lib is not None else None
+                t_h = cuda_ms(lambda: kernels.wrappers[name](*args))
+                t_k = graph_ms(lambda: kernels.wrappers[name](*args))
+                t_p = graph_ms(lambda: kernels.plain[name](*pargs))
+                t_l = graph_ms(lib) if lib is not None else None
                 b_ms, b_by = bound_ms(flops, nbytes, dt)
                 rate = flops / t_k / 1e9
-                log(line + f"; kernel {t_k:.4f} ms, plain {t_p:.4f} ms, library "
+                log(line + f"; kernel {t_k:.4f} ms device ({t_h:.4f} "
+                    f"host-incl.), plain {t_p:.4f} ms, library "
                     f"{'null' if t_l is None else f'{t_l:.4f} ms'}, bound "
-                    f"{b_ms:.4f} ms ({b_by}), {rate:.1f} TFLOP/s = "
+                    f"{b_ms:.4f} ms ({b_by}) = {b_ms / t_k:.3f} of the "
+                    f"kernel's time, {rate:.1f} TFLOP/s = "
                     f"{rate * 1e12 / PEAK_FLOPS[dt]:.4f} of the "
                     f"{str(dt)[6:]} peak" + plan_note(name, spec, args))
                 tot["ms"] += n * t_k
@@ -509,7 +550,7 @@ def kernel_group(name):
     lowered = name.lower()
     for keys, group in ((("conv3x3_",), "conv3x3 (port)"),
                         (("correlation_kernel",), "correlation (port)"),
-                        (("warp_kernel",), "warp (port)"),
+                        (("warp_kernel", "warp_pair_kernel"), "warp (port)"),
                         (("fprop", "cudnn", "conv", "implicit"),
                          "cuDNN (stride-2 convs)"),
                         (("gemm",), "matmul (tap-sum convs)"),

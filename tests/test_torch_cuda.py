@@ -109,30 +109,72 @@ def test_conv3x3_kernel_rejects_misaligned_input(gen):
         fused_conv3x3(x, rn(gen, (8, 16, 3, 3)), rn(gen, (8,)))
 
 
+# (shape, d): the four serving levels; d 1..3; C not a whole 16-byte unit
+# (3, 20, 65); H and W not multiples of the tile (4 x 32, 2 x 32, 1 x 32);
+# W below the tile width; H = 1; ragged images with more tiles than two
+# waves
+CORR_CASES = [((2, 136, 240, 32), 4), ((2, 68, 120, 64), 4),
+              ((2, 34, 60, 96), 4), ((2, 17, 30, 128), 4),
+              ((1, 21, 70, 32), 4), ((2, 9, 13, 16), 2), ((1, 8, 8, 20), 1),
+              ((1, 9, 13, 3), 1), ((2, 11, 37, 20), 2), ((1, 21, 70, 65), 3),
+              ((1, 5, 40, 128), 4), ((3, 6, 7, 65), 4), ((2, 1, 19, 20), 4),
+              ((1, 1, 1, 3), 2), ((1, 3, 33, 128), 3),
+              ((1, 137, 250, 32), 4), ((1, 137, 250, 20), 3)]
+# (slope, out_dtype): the default, and the flow net's fused epilogue
+EPILOGUES = [(None, torch.float32), (0.1, torch.float32),
+             (0.1, torch.bfloat16), (None, torch.bfloat16)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape,d", [((2, 17, 30, 128), 4), ((1, 21, 70, 32), 4),
-                                     ((2, 9, 13, 16), 2), ((1, 8, 8, 20), 1)])
-def test_correlation_kernel_matches_plain(gen, dtype, shape, d):
+@pytest.mark.parametrize("shape,d", CORR_CASES)
+@pytest.mark.parametrize("slope,out_dtype", EPILOGUES)
+def test_correlation_kernel_matches_plain(gen, dtype, shape, d, slope, out_dtype):
     f1, f2 = rn(gen, shape, dtype), rn(gen, shape, dtype)
     before = correlation.launches
-    out = correlation(f1, f2, d)
+    out = correlation(f1, f2, d, slope=slope, out_dtype=out_dtype)
     assert correlation.launches == before + 1
-    close(out, correlation_plain(f1, f2, d), torch.float32)
+    assert out.dtype == out_dtype and out.shape == (*shape[:3], (2 * d + 1) ** 2)
+    close(out, correlation_plain(f1, f2, d, slope, out_dtype), out_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_correlation_split_channels_is_reproducible(gen, dtype):
+    """At 17 x 30 the block splits the channel loop over its warps; the
+    fixed-order reduction gives the same bits on every call."""
+    f1, f2 = rn(gen, (2, 17, 30, 128), dtype), rn(gen, (2, 17, 30, 128), dtype)
+    a, b = correlation(f1, f2, 4, 0.1), correlation(f1, f2, 4, 0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("mode", ["zeros", "border"])
-@pytest.mark.parametrize("c", [4, 96])
+@pytest.mark.parametrize("c", [1, 3, 4, 5, 8, 32, 65, 96])
 def test_warp_kernel_matches_plain(gen, dtype, mode, c):
-    img = rn(gen, (2, 24, 40, c), dtype)
-    flow = rn(gen, (2, 24, 40, 2)) * 6.0
+    """Batch 3, odd W, and every fifth row sent 40-100 pixels outside."""
+    img = rn(gen, (3, 13, 37, c), dtype)
+    flow = rn(gen, (3, 13, 37, 2)) * 6.0
+    flow[:, ::5] *= 15.0
     before = backward_warp.launches
     out = backward_warp(img, flow, mode)
     assert backward_warp.launches == before + 1
     torch.cuda.synchronize()
     assert torch.equal(out, warp_plain(img, flow, mode))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(2, 544, 960, 4), (2, 34, 60, 96),
+                                   (2, 68, 120, 64), (2, 136, 240, 32)])
+def test_warp_kernel_serving_shapes(gen, dtype, shape):
+    img = rn(gen, shape, dtype)
+    flow = rn(gen, (*shape[:3], 2)) * 3.0
+    out = backward_warp(img, flow)
+    torch.cuda.synchronize()
+    assert torch.equal(out, warp_plain(img, flow))
 
 
 @pytest.mark.cuda

@@ -12,7 +12,9 @@ import numpy as np
 import pytest
 import torch
 
+from video_super_resolution_tpu.models.common import lrelu as jax_lrelu
 from video_super_resolution_tpu.ops.correlation import _correlation_xla
+from video_super_resolution_tpu.ops.correlation import correlation as jax_correlation
 from video_super_resolution_tpu.ops.pallas.correlation_tpu import correlation_pallas
 from video_super_resolution_tpu.ops.pallas.fused_conv import (
     _xla_conv,
@@ -189,6 +191,25 @@ def test_correlation_plain_matches_pallas_kernel(rng, shape, d):
     assert tuple(got.shape) == (*shape[:3], (2 * d + 1) ** 2)
     close(got, want)
     close(got, _correlation_xla(jnp.asarray(f1), jnp.asarray(f2), d))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [2, 4])
+def test_correlation_fused_epilogue_matches_flow_net(rng, d, dtype):
+    """correlation(..., slope, out_dtype) against the JAX flow net's
+    lrelu(correlation(fr, warped)).astype(dtype), inputs in dtype. bf16:
+    the two f32 sums may round to neighbouring bf16 values (rtol 2^-7)."""
+    shape = (2, 7, 11, 24)
+    f1 = rng.standard_normal(shape).astype(np.float32)
+    f2 = rng.standard_normal(shape).astype(np.float32)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    want = jax_lrelu(jax_correlation(jnp.asarray(f1, jdt), jnp.asarray(f2, jdt),
+                                     d), 0.1).astype(jdt)
+    got = correlation(torch.from_numpy(f1).to(tdt), torch.from_numpy(f2).to(tdt),
+                      d, slope=0.1, out_dtype=tdt)
+    assert got.dtype == tdt and tuple(got.shape) == tuple(want.shape)
+    rtol = RTOL if dtype == "float32" else 2.0 ** -7
+    close(got.float(), np.asarray(want.astype(jnp.float32)), rtol=rtol)
 
 
 @pytest.mark.parametrize("mode", ["zeros", "border"])

@@ -4,7 +4,8 @@ Per estimated level, coarsest first:
 
     flow_up = 2 * bilinear_up(flow)                  # pixels at this level
     warped  = backward_warp(nbr_feat, flow_up)
-    cv      = lrelu(correlation(ref_feat, warped))   # (2d+1)^2 channels
+    cv      = lrelu(correlation(ref_feat, warped))   # (2d+1)^2 channels,
+                                                     # one fused call
     flow    = flow_up + estimator(cv, ref_feat, flow_up)
 
 with a DenseNet-style estimator and a dilated-conv context network refining
@@ -21,7 +22,6 @@ from torch import nn
 from video_super_resolution_tpu_torch.models.common import (
     ConvLReLU,
     SmallOutConv,
-    lrelu,
 )
 from video_super_resolution_tpu_torch.models.feature_pyramid import FeaturePyramid
 from video_super_resolution_tpu_torch.ops.correlation import correlation
@@ -137,8 +137,9 @@ class FlowNet(nn.Module):
             else:
                 flow_up = 2.0 * resize_bilinear(flow, h, w)
                 warped = backward_warp(fn.contiguous(), flow_up.contiguous())
-            cv = lrelu(correlation(fr.contiguous(), warped.contiguous(),
-                                   self.max_displacement), self.slope).to(dt)
+            cv = correlation(fr.contiguous(), warped.contiguous(),
+                             self.max_displacement, slope=self.slope,
+                             out_dtype=dt)
             est_in = torch.cat([cv, fr, flow_up.to(dt)], dim=-1)
             feat, residual = getattr(self, f"estimator_l{l}")(est_in)
             flow = flow_up + residual

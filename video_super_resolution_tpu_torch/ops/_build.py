@@ -38,8 +38,9 @@ _SIGNATURES = {
     # dilation, slope, res_repeat, res_is_f32, is_bf16, stream
     "vsr_conv3x3": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                     _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
-    # f1, f2, out (f32), B, H, W, C, d, is_bf16, stream
-    "vsr_correlation": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # f1, f2, out, B, H, W, C, d, is_bf16, slope, has_slope, out_bf16,
+    # stream
+    "vsr_correlation": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     # img, flow (f32), out, B, H, W, C, zeros_padding, is_bf16, stream
     "vsr_warp": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }

@@ -15,6 +15,8 @@ from video_super_resolution_tpu_torch.ops import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _MODES = ("zeros", "border")
+# 256 threads a pixel, each one 16-byte channel group
+MAX_C = {torch.float32: 1024, torch.bfloat16: 2048}
 
 
 def _check(img, flow, padding_mode):
@@ -72,6 +74,10 @@ def _warp_cuda(img, flow, padding_mode):
     if not (img.is_contiguous() and flow.is_contiguous()):
         raise ValueError("backward_warp: inputs must be contiguous")
     b, h, w, c = img.shape
+    if c > MAX_C[img.dtype] or h > 65535 or b > 65535:
+        raise ValueError(f"backward_warp: kernel takes C <= "
+                         f"{MAX_C[img.dtype]}, H and B <= 65535, got "
+                         f"{tuple(img.shape)}")
     out = torch.empty_like(img)
     lib = _build.lib()
     with torch.cuda.device(img.device):
