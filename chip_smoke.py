@@ -34,10 +34,34 @@ the JAX package. Phases, each of which fails the run on error:
    under torch.profiler for device time by kernel group and idle share;
 5. f32 parity: the f32 serving forward through the kernels against the
    same forward through the plain versions on the card (rtol 2e-3,
-   atol 5e-4), and a small window on the card against the CPU path.
+   atol 5e-4), and a small window on the card against the CPU path;
+6. training at ``VSRConfig()`` full width (bf16 compute, f32 master
+   parameters, LR crop 64, batch 4, window 3, depth branch at 1/2 res) on
+   in-memory synthetic clips:
+   - grad check: f32, TF32 off, one batch, the loss and every parameter's
+     gradient through the kernels' autograd Functions against autograd
+     through the plain versions (each gradient over its largest magnitude,
+     rtol 2e-3, atol 5e-4);
+   - fixed batch: 10 bf16 steps (warmup 0, lr 1e-4), counts set to 0 before
+     each step and read after: every step launches all three kernels; the
+     loss is finite and falls; each conv's kernel layout is rebuilt once a
+     step and never stale; the kernels' argument specs on this path are
+     recorded;
+   - train kernels: at each of those specs, f32 and bf16, the forward
+     against the plain version and the Function's gradients against
+     autograd of the plain version (TOL, gradients over their largest
+     magnitude);
+   - throughput: ``training.loop.train`` for 10 warm-up + 30 timed steps:
+     steps/s and frames/s from the loop's log, peak memory; host wall a
+     step on a device batch; one profiled step: busy, idle share, device
+     time by group;
+   - checkpoint: save, restore into a fresh state, bit-equal;
+   - eval: ``evaluate_all`` PSNR/SSIM on a synthetic clip, bf16 and f32.
 
 The last two lines are the ``{"kernels": [...]}`` summary (per-forward
-totals over the recorded shapes) and ``{"ok": true, "device": {...}}``.
+totals over the serving forward's specs; ``launches`` counts the serving
+forward, ``train_step_launches`` one train step) and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -122,7 +146,7 @@ class Kernels:
     that reach them."""
 
     def __init__(self):
-        from video_super_resolution_tpu_torch.models import common, flow_net, fusion, vsr
+        from video_super_resolution_tpu_torch.models import common, flow_net, vsr
         from video_super_resolution_tpu_torch.ops import correlation, fused_conv, warp
 
         self.wrappers = {"conv3x3": fused_conv.fused_conv3x3,
@@ -140,7 +164,6 @@ class Kernels:
                      "video_super_resolution_tpu/ops/pallas/warp_shift_tpu.py:197"),
         }
         self.sites = [(common, "fused_conv3x3", "conv3x3"),
-                      (fusion, "fused_conv3x3", "conv3x3"),
                       (flow_net, "correlation", "correlation"),
                       (flow_net, "backward_warp", "warp"),
                       (vsr, "backward_warp", "warp")]
@@ -193,9 +216,14 @@ class Kernels:
                 return plain
 
             def conv(x, w, b=None, slope=0.1, dilation=1, res=None,
-                     res_repeat=1, shuffle=False):
+                     res_repeat=1, shuffle=False, params=None):
                 if isinstance(w, PreparedConv3x3):
-                    w, b = unpack_conv3x3_weight(w), w.bias
+                    if params is None:
+                        w, b = unpack_conv3x3_weight(w), w.bias
+                    else:   # the parameters themselves: gradients reach them
+                        w, b = params
+                        b = (torch.zeros(w.shape[0], device=x.device)
+                             if b is None else b.to(x.dtype))
                 out = plain(x, w, b, slope, dilation, res, res_repeat)
                 return pixel_shuffle(out, 2) if shuffle else out
             return conv
@@ -526,9 +554,7 @@ def phase_profile(model, window):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         api.eval_step(model, window)
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.time_range.end > e.time_range.start]
+    kernels = device_events(prof)
     if not kernels:
         log("[profile] the profiler recorded no device events: device time "
             "by kernel and idle share not measured")
@@ -546,16 +572,31 @@ def phase_profile(model, window):
         log(f"[profile] {g}: {us / 1e3:.3f} ms ({us / busy:.4f} of busy)")
 
 
+def device_events(prof):
+    """The device's kernels and copies in a profile (not the ranges that
+    annotate them on the device's timeline, e.g. the optimizer's step)."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and e.time_range.end > e.time_range.start]
+
+
 def kernel_group(name):
     lowered = name.lower()
     for keys, group in ((("conv3x3_",), "conv3x3 (port)"),
                         (("correlation_kernel",), "correlation (port)"),
                         (("warp_kernel", "warp_pair_kernel"), "warp (port)"),
+                        (("dgrad", "wgrad"),
+                         "cuDNN conv backward (dgrad, wgrad)"),
                         (("fprop", "cudnn", "conv", "implicit"),
                          "cuDNN (stride-2 convs)"),
                         (("gemm",), "matmul (tap-sum convs)"),
                         (("catarray",), "concat"),
-                        (("index", "gather"), "gather/index (resize, pad)"),
+                        (("im2col", "col2im"),
+                         "unfold/fold (correlation backward)"),
+                        (("multi_tensor_apply",), "foreach (clip, Adam)"),
+                        (("index", "gather", "scatter"),
+                         "gather/index (resize, pad; warp backward)"),
                         (("softmax", "reduce"), "reductions (softmax, sums)"),
                         (("elementwise", "copy"), "elementwise and copies")):
         if any(k in lowered for k in keys):
@@ -596,6 +637,382 @@ def phase_f32(kernels, window):
         raise AssertionError("card vs CPU path exceeds the model tolerance")
 
 
+# ---------------------------------------------------------------- training
+
+TRAIN_BATCH, TRAIN_CROP = 4, 64     # VSRConfig()'s data.batch_size, crop_size
+FIXED_STEPS = 10
+WARM_TRAIN_STEPS, TIMED_TRAIN_STEPS = 10, 30
+LOG_EVERY = 10
+
+
+def train_cfg(**train_kw):
+    """VSRConfig() (full width, bf16 compute, depth branch at 1/2 res) with
+    ``train_kw`` replaced."""
+    from video_super_resolution_tpu_torch import VSRConfig
+
+    cfg = VSRConfig()
+    return cfg.replace(train=dataclasses.replace(cfg.train, **train_kw))
+
+
+def train_data():
+    """In-memory synthetic HR clips (a smooth translation, the full-spectrum
+    translation, layered occlusions, a shear), degraded x4 by the port's
+    bicubic: the train set; and one smooth clip for evaluation."""
+    from video_super_resolution_tpu_torch.data import synthetic as syn
+    from video_super_resolution_tpu_torch.data.dataset import ClipDataset
+
+    h, w = 256, 320
+    clips = {"smooth": syn.moving_gradient_clip(7, h, w, 2.0, -1.0, seed=0)[0],
+             "detail": syn.detail_clip(7, h, w, seed=1),
+             "layered": syn.layered_clip(7, h, w, seed=2),
+             "shear": syn.shear_clip(7, h, w, seed=3)}
+    train = ClipDataset(clips_hr=clips, crop_size=TRAIN_CROP, seed=0)
+    _, hr = syn.synthetic_clip_pair(5, 256, 256, 4, seed=4)
+    return train, ClipDataset(clips_hr={"eval": hr}, crop_size=TRAIN_CROP)
+
+
+def device_batch(batch):
+    return {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+
+
+def loss_and_grads(model, batch):
+    from video_super_resolution_tpu_torch.ops.losses import charbonnier_loss
+
+    model.zero_grad(set_to_none=True)
+    loss = charbonnier_loss(model(batch["lr"]), batch["hr"])
+    loss.backward()
+    torch.cuda.synchronize()
+    return float(loss.detach()), {n: p.grad.detach().clone()
+                                  for n, p in model.named_parameters()}
+
+
+def grad_scales(want):
+    """Per tensor, the scale its gradient is compared at: its largest
+    magnitude (a gradient is a sum over many pixels; its small entries carry
+    the rounding of the large), at least 1e-4 of the largest over all
+    tensors (the score bias before the softmax over neighbours has a
+    gradient of 0 plus rounding)."""
+    top = max(float(g.abs().max()) for g in want.values())
+    return {n: max(float(g.abs().max()), 1e-4 * top) for n, g in want.items()}
+
+
+def phase_train_grads(kernels, batch):
+    """f32, TF32 off: the loss and every parameter's gradient through the
+    kernels' autograd Functions against the same through the plain
+    versions (autograd of plain PyTorch), one batch."""
+    from video_super_resolution_tpu_torch import api
+
+    model = api.build_model(train_cfg(compute_dtype="float32"), "cuda", seed=0)
+    kernels.reset()
+    loss_k, g_k = loss_and_grads(model, batch)
+    counts = kernels.counts()
+    with kernels.plain_path():
+        kernels.reset()
+        loss_p, g_p = loss_and_grads(model, batch)
+        if sum(kernels.counts().values()):
+            raise AssertionError("plain path launched a kernel")
+    rtol, atol = MODEL_TOL
+    scale = grad_scales(g_p)
+    errs = {n: float((g_k[n] - g_p[n]).abs().max()) / scale[n] for n in g_p}
+    bad = [n for n in g_p if not torch.allclose(
+        g_k[n] / scale[n], g_p[n] / scale[n], rtol=rtol, atol=atol)]
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+    log(f"[train-grad] f32 loss and gradients of {len(g_p)} parameters, "
+        f"kernels ({counts}) vs plain on the card: loss {loss_k:.6f} vs "
+        f"{loss_p:.6f}; max|diff| / scale, worst: "
+        + ", ".join(f"{n} {e:.3e}" for n, e in worst))
+    if bad or abs(loss_k - loss_p) > atol + rtol * abs(loss_p):
+        raise AssertionError(f"f32 gradients beyond rtol {rtol} atol {atol} "
+                             f"(over each tensor's scale): {bad}")
+    for n, c in counts.items():
+        if c <= 0:
+            raise AssertionError(f"grad check: {n} was not launched")
+
+
+def phase_train_fixed(kernels, batch):
+    """bf16, warmup 0, lr 1e-4: FIXED_STEPS steps on one batch. Each step
+    launches all three kernels; the loss is finite and falls; each conv's
+    kernel layout is rebuilt once a step (the optimizer's in-place update)
+    and never served stale. The first step records the argument specs the
+    kernels get on the train path."""
+    from video_super_resolution_tpu_torch.models import common
+    from video_super_resolution_tpu_torch.ops.fused_conv import unpack_conv3x3_weight
+    from video_super_resolution_tpu_torch.training.state import create_train_state
+    from video_super_resolution_tpu_torch.training.step import make_train_step
+
+    cfg = train_cfg(warmup_steps=0, lr=1e-4)
+    state = create_train_state(cfg, "cuda", seed=0)
+    step = make_train_step(cfg.train.charbonnier_eps)
+    calls = collections.defaultdict(collections.Counter)
+    built = []
+    real = common.prepare_conv3x3_weight
+    common.prepare_conv3x3_weight = lambda *a: built.append(1) or real(*a)
+    losses, per_step, rebuilds = [], [], []
+    try:
+        for i in range(FIXED_STEPS):
+            kernels.reset()
+            del built[:]
+            if i == 0:
+                with kernels.recording(calls):
+                    state, m = step(state, batch)
+            else:
+                state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            per_step.append(kernels.counts())
+            rebuilds.append(len(built))
+    finally:
+        common.prepare_conv3x3_weight = real
+    convs = [mod for mod in state.model.modules()
+             if isinstance(mod, common._Conv3x3)]
+    entries = sum(len(mod._prepared) for mod in convs)
+    stale = 0
+    for mod in convs:
+        for dt, lo, hi, with_bias in list(mod._prepared):
+            prep = mod.prepared(dt, slice(lo, hi), with_bias)
+            stale += not torch.equal(unpack_conv3x3_weight(prep),
+                                     mod.weight[:, lo:hi].detach().to(dt))
+    log(f"[train-fixed] bf16 VSRConfig() batch {TRAIN_BATCH} crop "
+        f"{TRAIN_CROP}, {FIXED_STEPS} steps at lr 1e-4: loss "
+        + " ".join(f"{v:.5f}" for v in losses)
+        + f"; launches a step {per_step[-1]}; kernel layouts rebuilt a step "
+        f"{rebuilds} of {entries} cached, stale after the update: {stale}")
+    if not all(math.isfinite(v) for v in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"fixed-batch loss did not fall: {losses}")
+    for c in per_step:
+        if min(c.values()) <= 0:
+            raise AssertionError(f"a train step did not launch every kernel: {c}")
+    if stale or any(r != entries for r in rebuilds):
+        raise AssertionError("prepared conv weights stale or rebuilt more "
+                             "than once a step")
+    return calls, per_step[-1]
+
+
+def train_case(name, spec, dtype, gen):
+    """Random inputs of a recorded spec that require grad; the wrapper's
+    arguments; the plain version's arguments without the LeakyReLU; its
+    slope (None: no activation); the output's shape and dtype. The conv's
+    weight is an f32 OIHW parameter."""
+    def rn(shape, dt, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                ).to(dt).requires_grad_()
+
+    if name == "conv3x3":
+        xs, _, cout, d, slope, res, rr = spec
+        b, h, w, cin = xs
+        ins = [rn(xs, dtype), rn((cout, cin, 3, 3), torch.float32,
+                                 1 / math.sqrt(9 * cin)),
+               rn((cout,), torch.float32, 0.1)]
+        if res is not None:
+            ins.append(rn(res[0], torch.float32 if res[1] == torch.float32
+                          else dtype))
+        r = ins[3] if res is not None else None
+        return (ins, (*ins[:3], slope, d, r, rr), (*ins[:3], 1.0, d, r, rr),
+                None if slope == 1.0 else slope, (b, h, w, cout), dtype)
+    if name == "correlation":
+        xs, in_dt, d, slope, out_dt = spec
+        od = dtype if out_dt == in_dt else out_dt
+        ins = [rn(xs, dtype), rn(xs, dtype)]
+        return (ins, (*ins, d, slope, od), (*ins, d, None, od), slope,
+                (*xs[:3], (2 * d + 1) ** 2), od)
+    xs, _, mode = spec
+    ins = [rn(xs, dtype), rn((*xs[:3], 2), torch.float32, 3.0)]
+    return ins, (*ins, mode), (*ins, mode), None, xs, dtype
+
+
+def phase_train_kernels(kernels, calls):
+    """At every argument spec the train step gave each kernel, in f32 and
+    bf16: the forward against the plain version (TOL) and the gradients of
+    the autograd Function (explicit backward) against autograd of the plain
+    version, each over the reference's largest magnitude (TOL). The
+    LeakyReLU's derivative jumps at 0, and the kernel's and the plain
+    version's pre-activations differ by rounding, so the reference takes
+    it from the kernel's output, as the backward does, and autograd of the
+    plain version without the activation gives the rest."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for name in ("conv3x3", "correlation", "warp"):
+        worst = {torch.float32: [0.0, 0.0], torch.bfloat16: [0.0, 0.0]}
+        for spec in sorted(calls[name], key=str):
+            for dt in (torch.float32, torch.bfloat16):
+                ins, args, lin_args, slope, out_shape, out_dt = train_case(
+                    name, spec, dt, gen)
+                g = torch.randn(out_shape, generator=gen, device="cuda").to(out_dt)
+                out = kernels.wrappers[name](*args)
+                got = torch.autograd.grad(out, ins, g)
+                ref = kernels.plain[name](*args).detach()
+                g_lin = g if slope is None else torch.where(out >= 0, g, g * slope)
+                want = torch.autograd.grad(kernels.plain[name](*lin_args),
+                                           ins, g_lin)
+                torch.cuda.synchronize()
+                rtol, atol = TOL[dt]
+                f_err = (out.float() - ref.float()).abs().max().item()
+                if not torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol):
+                    raise AssertionError(f"[train-kernel] {name} {spec} {dt} "
+                                         f"forward max|diff| {f_err:.3e}")
+                for a, b in zip(got, want):
+                    s = b.float().abs().max().clamp(min=1e-30)
+                    if not torch.allclose(a.float() / s, b.float() / s,
+                                          rtol=rtol, atol=atol):
+                        raise AssertionError(
+                            f"[train-kernel] {name} {spec} {dt} backward: "
+                            f"max|diff| / max|grad| "
+                            f"{((a.float() - b.float()).abs().max() / s).item():.3e}")
+                    worst[dt][1] = max(worst[dt][1], ((a.float() - b.float())
+                                                      .abs().max() / s).item())
+                worst[dt][0] = max(worst[dt][0], f_err)
+        log(f"[train-kernel] {name}: {len(calls[name])} train-step specs, "
+            f"{sum(calls[name].values())} calls a step; forward max|diff| "
+            f"f32 {worst[torch.float32][0]:.3e} bf16 "
+            f"{worst[torch.bfloat16][0]:.3e}; backward max|diff| / max|grad| "
+            f"f32 {worst[torch.float32][1]:.3e} bf16 "
+            f"{worst[torch.bfloat16][1]:.3e} (vs autograd of the plain version)")
+
+
+def phase_train_loop(train_ds, tmp):
+    """``training.loop.train`` at VSRConfig() (bf16, warmup 2000, batch 4,
+    crop 64) for WARM_TRAIN_STEPS + TIMED_TRAIN_STEPS steps, logging every
+    LOG_EVERY: steps/s and frames/s of the timed steps from the loop's own
+    log (host clock, data pipeline included), peak memory."""
+    from video_super_resolution_tpu_torch.training.loop import train
+
+    cfg = train_cfg(ckpt_dir=os.path.join(tmp, "loop"), log_every=LOG_EVERY,
+                    ckpt_every=10 ** 9)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train(cfg, train_ds, max_steps=WARM_TRAIN_STEPS + TIMED_TRAIN_STEPS)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with open(os.path.join(cfg.train.ckpt_dir, "train.jsonl")) as f:
+        logs = [json.loads(line) for line in f]
+    timed = [r for r in logs if "steps_per_s" in r
+             and r["step"] > WARM_TRAIN_STEPS]
+    secs = sum(LOG_EVERY / r["steps_per_s"] for r in timed)
+    sps = len(timed) * LOG_EVERY / secs
+    log(f"[train-loop] training.loop.train, bf16 VSRConfig() batch "
+        f"{TRAIN_BATCH} crop {TRAIN_CROP} (HR {4 * TRAIN_CROP}), steps "
+        f"{WARM_TRAIN_STEPS + 1}-{WARM_TRAIN_STEPS + TIMED_TRAIN_STEPS}: "
+        f"{sps:.3f} steps/s = {sps * TRAIN_BATCH:.3f} frames/s, host wall "
+        f"{1e3 / sps:.3f} ms/step (host clock between the loop's logs, "
+        f"data pipeline included); whole call {wall:.1f} s with "
+        f"{WARM_TRAIN_STEPS} warm-up steps and one checkpoint; peak memory "
+        f"{peak:.3f} GiB; last loss {timed[-1]['loss']:.5f}")
+    if out["state"].step != WARM_TRAIN_STEPS + TIMED_TRAIN_STEPS:
+        raise AssertionError("train() stopped at the wrong step")
+    return out["state"], cfg
+
+
+def phase_train_profile(state, batch):
+    """Steps on a batch already on the card: host wall a step (host clock
+    around 10 steps ending in a synchronise), then one step under
+    torch.profiler: device busy, idle share, device time by group."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from video_super_resolution_tpu_torch.training.step import make_train_step
+
+    step = make_train_step()
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / 10 * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    evs = device_events(prof)
+    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
+    log("[train-profile] host time by op (self CPU ms, calls; profiled): "
+        + "; ".join(f"{a.key} {a.self_cpu_time_total / 1e3:.3f} ({a.count})"
+                    for a in host[:12])
+        + f"; all ops {sum(a.self_cpu_time_total for a in host) / 1e3:.3f} ms")
+    if not evs:
+        log(f"[train-profile] host wall {wall:.3f} ms/step; the profiler "
+            f"recorded no device events: busy and idle share not measured")
+        return state
+    start = min(e.time_range.start for e in evs)
+    end = max(e.time_range.end for e in evs)
+    busy = sum(e.time_range.end - e.time_range.start for e in evs)
+    groups = collections.Counter()
+    for e in evs:
+        groups[kernel_group(e.name)] += e.time_range.end - e.time_range.start
+    log(f"[train-profile] bf16 train step, device batch: host wall "
+        f"{wall:.3f} ms/step (10 steps, host clock); one profiled step: "
+        f"{len(evs)} device events, span {(end - start) / 1e3:.3f} ms, busy "
+        f"{busy / 1e3:.3f} ms, idle share {1 - busy / (end - start):.4f}")
+    for g, us in groups.most_common():
+        log(f"[train-profile] {g}: {us / 1e3:.3f} ms ({us / busy:.4f} of busy)")
+    names = collections.Counter()
+    for e in evs:
+        names[e.name[:70]] += e.time_range.end - e.time_range.start
+    log("[train-profile] largest kernels: " + "; ".join(
+        f"{n} {us / 1e3:.3f} ms" for n, us in names.most_common(10)))
+    return state
+
+
+def phase_checkpoint(state, cfg, tmp):
+    """Save, restore into a fresh state: parameters and optimizer state
+    bit-equal, the step restored; one more step from the restored state."""
+    from video_super_resolution_tpu_torch.training.checkpoint import CheckpointManager
+    from video_super_resolution_tpu_torch.training.state import create_train_state
+
+    mgr = CheckpointManager(os.path.join(tmp, "ckpt"), keep=2)
+    mgr.save(state.step, state, cfg)
+    fresh = create_train_state(cfg, "cuda", seed=1)
+    restored, at = mgr.restore(fresh)
+    pa = dict(state.model.named_parameters())
+    same = all(torch.equal(pa[n], p) for n, p in restored.model.named_parameters())
+    sa = state.optimizer.state_dict()["state"]
+    sb = restored.optimizer.state_dict()["state"]
+    same_opt = sa.keys() == sb.keys() and all(
+        sa[k]["step"] == sb[k]["step"] and torch.equal(sa[k]["exp_avg"], sb[k]["exp_avg"])
+        and torch.equal(sa[k]["exp_avg_sq"], sb[k]["exp_avg_sq"]) for k in sa)
+    cfg_back = mgr.restore_config()
+    log(f"[checkpoint] saved step {state.step} ({os.path.getsize(mgr.path(state.step)) / 2 ** 20:.1f} "
+        f"MiB), restored into a fresh state at step {at}: parameters "
+        f"bit-equal {same}, optimizer state bit-equal {same_opt}, config "
+        f"equal {cfg_back == cfg}")
+    if not (same and same_opt and at == state.step == restored.step
+            and cfg_back == cfg):
+        raise AssertionError("checkpoint round trip is not exact")
+
+
+def phase_eval(state, eval_ds):
+    """evaluate_all on a synthetic clip with the trained bf16 model and the
+    same weights in f32."""
+    from video_super_resolution_tpu_torch import api
+    from video_super_resolution_tpu_torch.evaluation.evaluate import evaluate_all
+
+    m32 = api.build_model(train_cfg(compute_dtype="float32"), "cuda")
+    m32.load_state_dict(state.model.state_dict())
+    out = {}
+    for tag, model in (("bf16", state.model), ("f32", m32)):
+        avg = evaluate_all(api.eval_step, model, eval_ds)["__average__"]
+        out[tag] = avg
+        log(f"[eval] evaluate_all, {tag}, synthetic clip (5 frames, HR "
+            f"256x256, Y, border 4): PSNR {avg['psnr']:.4f} dB, SSIM "
+            f"{avg['ssim']:.5f} over {avg['frames']} frames")
+        if not (math.isfinite(avg["psnr"]) and 0 < avg["ssim"] <= 1):
+            raise AssertionError(f"eval {tag}: {avg}")
+    log(f"[eval] bf16 - f32: {out['bf16']['psnr'] - out['f32']['psnr']:+.4f} dB")
+
+
+def phase_train(kernels):
+    import tempfile
+
+    train_ds, eval_ds = train_data()
+    batch = device_batch(next(train_ds.batches(TRAIN_BATCH)))
+    phase_train_grads(kernels, batch)
+    calls, launches = phase_train_fixed(kernels, batch)
+    phase_train_kernels(kernels, calls)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        state, cfg = phase_train_loop(train_ds, tmp)
+        state = phase_train_profile(state, batch)
+        phase_checkpoint(state, cfg, tmp)
+    phase_eval(state, eval_ds)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -615,6 +1032,9 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     phase_f32(kernels, window)
+    train_launches = phase_train(kernels)
+    for row in rows:
+        row["train_step_launches"] = train_launches[row["name"]]
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

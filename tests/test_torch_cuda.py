@@ -186,3 +186,111 @@ def test_kernels_reject_what_they_do_not_take(gen):
         correlation(x, x, 5)
     with pytest.raises(TypeError):
         backward_warp(x, rn(gen, (1, 8, 8, 2), torch.bfloat16))
+
+
+# ------------------------------------------------------------ gradients
+# Each kernel's autograd Function (its explicit backward) against autograd
+# of its plain version, at the train step's shapes (VSRConfig(): LR crop
+# 64, batch 4, window 3). A gradient is a sum over many pixels, so it is
+# compared after division by the reference's largest magnitude. The
+# LeakyReLU's derivative jumps at 0: where the kernel's and the plain
+# version's pre-activations (equal up to rounding) straddle 0, the two
+# derivatives differ by 0.9 g. So the reference takes the activation's
+# derivative from the kernel's output, as the backward does, and autograd
+# of the plain version without the activation gives the rest. (The
+# derivative itself is held against JAX on the CPU,
+# tests/test_torch_autograd.py.)
+
+
+def lrelu_grad(out, g, slope):
+    return torch.where(out >= 0, g, g * slope)
+
+def grad_close(got, want, dtype):
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        s = b.float().abs().max().clamp(min=1e-30)
+        torch.testing.assert_close(a.float() / s, b.float() / s, **TOL[dtype])
+
+
+# (B, H, W, Cin, Cout, dilation, slope, res_repeat; 0 = no residual): SR
+# trunk, trunk conv with its skip, score conv with the shared reference
+# half, frame encoder (Cin 3), flow estimator, dilated context conv,
+# pyramid level 0
+TRAIN_CONV = [(4, 64, 64, 64, 128, 1, 0.1, 0), (4, 64, 64, 128, 64, 1, 1.0, 1),
+              (8, 64, 64, 66, 64, 1, 0.1, 2), (12, 64, 64, 3, 64, 1, 0.1, 0),
+              (8, 16, 16, 115, 128, 1, 0.1, 0), (8, 16, 16, 128, 128, 4, 0.1, 0),
+              (12, 32, 32, 16, 16, 1, 0.1, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,h,w,cin,cout,d,slope,rr", TRAIN_CONV)
+def test_conv3x3_backward_matches_plain_autograd(gen, dtype, b, h, w, cin,
+                                                 cout, d, slope, rr):
+    x = rn(gen, (b, h, w, cin), dtype).requires_grad_()
+    wt = (rn(gen, (cout, cin, 3, 3)) / (9 * cin) ** 0.5).requires_grad_()
+    bias = (rn(gen, (cout,)) * 0.1).requires_grad_()
+    res = rn(gen, (b // rr, h, w, cout), dtype).requires_grad_() if rr else None
+    g = rn(gen, (b, h, w, cout), dtype)
+    ins = [x, wt, bias] + ([res] if rr else [])
+    before = fused_conv3x3.launches
+    out = fused_conv3x3(x, wt, bias, slope, d, res, max(rr, 1))
+    got = torch.autograd.grad(out, ins, g)
+    assert fused_conv3x3.launches == before + 1      # none in the backward
+    want = torch.autograd.grad(
+        conv3x3_plain(x, wt, bias, 1.0, d, res, max(rr, 1)), ins,
+        lrelu_grad(out, g, slope))
+    grad_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_conv3x3_backward_through_prepared_weight(gen, dtype):
+    x = rn(gen, (4, 64, 64, 64), dtype).requires_grad_()
+    wt = (rn(gen, (64, 64, 3, 3)) / 24.0).requires_grad_()
+    bias = (rn(gen, (64,)) * 0.1).requires_grad_()
+    prep = prepare_conv3x3_weight(wt.detach(), bias.detach(), dtype)
+    g = rn(gen, (4, 64, 64, 64), dtype)
+    out = fused_conv3x3(x, prep, None, 0.1, params=(wt, bias))
+    got = torch.autograd.grad(out, [x, wt, bias], g)
+    want = torch.autograd.grad(conv3x3_plain(x, wt, bias, 1.0), [x, wt, bias],
+                               lrelu_grad(out, g, 0.1))
+    grad_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(8, 16, 16, 32), (8, 8, 8, 64),
+                                   (8, 4, 4, 96), (8, 2, 2, 128)])
+def test_correlation_backward_matches_plain_autograd(gen, dtype, shape):
+    """The flow net's call: d = 4, fused LeakyReLU, output in the compute
+    dtype; at 4 x 4 and 2 x 2 the window is mostly zero padding."""
+    f1 = rn(gen, shape, dtype).requires_grad_()
+    f2 = rn(gen, shape, dtype).requires_grad_()
+    g = rn(gen, (*shape[:3], 81), dtype)
+    before = correlation.launches
+    out = correlation(f1, f2, 4, 0.1, dtype)
+    got = torch.autograd.grad(out, [f1, f2], g)
+    assert correlation.launches == before + 1
+    want = torch.autograd.grad(correlation_plain(f1, f2, 4, None, dtype),
+                               [f1, f2], lrelu_grad(out, g, 0.1))
+    grad_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["zeros", "border"])
+@pytest.mark.parametrize("shape,dtype", [
+    ((8, 64, 64, 4), torch.float32), ((8, 16, 16, 32), torch.float32),
+    ((8, 16, 16, 32), torch.bfloat16), ((8, 8, 8, 64), torch.bfloat16),
+    ((8, 4, 4, 96), torch.bfloat16)])
+def test_warp_backward_matches_plain_autograd(gen, mode, shape, dtype):
+    """The frame + depth warp (f32, C = 4) and the feature warps (bf16 in
+    the train step); flows of +-3 px, some taps outside the image."""
+    img = rn(gen, shape, dtype).requires_grad_()
+    flow = (rn(gen, (*shape[:3], 2)) * 3.0).requires_grad_()
+    g = rn(gen, shape, dtype)
+    before = backward_warp.launches
+    got = torch.autograd.grad(backward_warp(img, flow, mode), [img, flow], g)
+    assert backward_warp.launches == before + 1
+    want = torch.autograd.grad(warp_plain(img, flow, mode), [img, flow], g)
+    grad_close(got, want, dtype)

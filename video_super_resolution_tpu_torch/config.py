@@ -2,8 +2,10 @@
 
 The port's own copy of the JAX package's config tree (model topology, data,
 training, mesh), kept field-for-field identical so that a config serialized
-by either package loads in the other. Only ``ModelConfig`` and the compute
-dtype of ``TrainConfig`` are read by the serving forward today.
+by either package loads in the other. The serving forward reads
+``ModelConfig`` and the compute dtype of ``TrainConfig``; training reads
+the rest (``MeshConfig`` only to refuse a parallel mesh, which is not
+ported yet).
 """
 
 from __future__ import annotations

@@ -4,8 +4,10 @@ Activations are NHWC, as in the JAX package. Each conv module owns an OIHW
 ``weight`` and a ``bias`` kept in f32. Every stride-1 3x3 conv goes through
 ``ops.fused_conv3x3`` (the CUDA kernel on the card) with the weight in the
 kernel's layout, prepared once per compute dtype and kept until the
-parameters change; stride-2 convs and the tiny-output convs are plain
-PyTorch, as they were plain XLA in the JAX package.
+parameters change (an optimizer's in-place step bumps their ``_version``),
+with the parameters themselves beside it when gradients are wanted;
+stride-2 convs and the tiny-output convs are plain PyTorch, as they were
+plain XLA in the JAX package.
 """
 
 from __future__ import annotations
@@ -56,6 +58,21 @@ class _Conv3x3(nn.Module):
             self._prepared[key] = hit
         return hit[1]
 
+    def conv(self, x: torch.Tensor, dtype: torch.dtype, slope: float,
+             dilation: int = 1, res: Optional[torch.Tensor] = None,
+             res_repeat: int = 1, cin: slice = slice(None),
+             with_bias: bool = True) -> torch.Tensor:
+        """``fused_conv3x3`` of x (cast to ``dtype``) with the weight's input
+        channels ``cin`` and, if ``with_bias``, the bias, in the kernel's
+        layout; with grad enabled the parameters themselves ride along, so
+        that their gradients reach ``weight`` and ``bias``."""
+        params = None
+        if torch.is_grad_enabled():
+            params = (self.weight[:, cin], self.bias if with_bias else None)
+        return fused_conv3x3(x.to(dtype).contiguous(),
+                             self.prepared(dtype, cin, with_bias), None,
+                             slope, dilation, res, res_repeat, params=params)
+
 
 class ConvLReLU(_Conv3x3):
     """3x3 conv + bias + LeakyReLU. Stride 1 (any dilation) runs the fused
@@ -75,8 +92,7 @@ class ConvLReLU(_Conv3x3):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         if self.strides == 1:
-            return fused_conv3x3(x.to(dt).contiguous(), self.prepared(dt),
-                                 None, self.slope, self.dilation)
+            return self.conv(x, dt, self.slope, self.dilation)
         out = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), None,
                        stride=self.strides, padding=self.dilation,
                        dilation=self.dilation).permute(0, 2, 3, 1)
@@ -100,10 +116,7 @@ class RoutedConv(_Conv3x3):
 
     def forward(self, x: torch.Tensor,
                 res: Optional[torch.Tensor] = None) -> torch.Tensor:
-        dt = self.dtype
-        out = fused_conv3x3(x.to(dt).contiguous(), self.prepared(dt), None,
-                            1.0, res=res)
-        return out.to(self.out_dtype)
+        return self.conv(x, self.dtype, 1.0, res=res).to(self.out_dtype)
 
 
 def tap_sum_conv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

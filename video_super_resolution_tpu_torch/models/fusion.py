@@ -17,7 +17,6 @@ from video_super_resolution_tpu_torch.models.common import (
     _Conv3x3,
     tap_sum_conv,
 )
-from video_super_resolution_tpu_torch.ops.fused_conv import fused_conv3x3
 
 
 class ScoreConv(_Conv3x3):
@@ -40,12 +39,10 @@ class ScoreConv(_Conv3x3):
         b, n, h, w, cn = nbr_in.shape
         dt = self.dtype
         cr = self.c_ref
-        s_ref = fused_conv3x3(ref_in.to(dt).contiguous(),
-                              self.prepared(dt, slice(None, cr), False), None,
-                              1.0)
-        s = fused_conv3x3(nbr_in.reshape(b * n, h, w, cn).to(dt).contiguous(),
-                          self.prepared(dt, slice(cr, None)), None,
-                          self.slope, res=s_ref, res_repeat=n)
+        s_ref = self.conv(ref_in, dt, 1.0, cin=slice(None, cr),
+                          with_bias=False)
+        s = self.conv(nbr_in.reshape(b * n, h, w, cn), dt, self.slope,
+                      res=s_ref, res_repeat=n, cin=slice(cr, None))
         return s.reshape(b, n, h, w, -1)
 
 

@@ -9,6 +9,11 @@ cast to ``out_dtype`` (f32 by default), which is the flow net's
 CUDA kernel ``csrc/correlation.cu`` for CUDA tensors and runs
 ``correlation_plain``, the shifted-slice formulation of the JAX package,
 for CPU tensors.
+
+Gradients: with grad enabled and an input that requires it, the forward
+runs inside ``_CorrelationFn`` and ``correlation_backward`` gives d f1 and
+d f2, the counterpart of the JAX package's ``correlation_pallas`` backward
+(XLA's vjp of the plain formulation, not a Pallas kernel).
 """
 
 from __future__ import annotations
@@ -80,14 +85,67 @@ def _correlation_cuda(f1, f2, d, slope, out_dtype):
     return out
 
 
+def correlation_backward(g: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor,
+                         max_displacement: int = 4,
+                         slope: Optional[float] = None,
+                         out: Optional[torch.Tensor] = None):
+    """(d f1, d f2) of ``correlation`` from the output's gradient ``g`` (and,
+    with a ``slope``, the saved output ``out``, whose sign is that of the
+    LeakyReLU's input), in f32, returned in the inputs' dtypes:
+
+        d f1[p]  = (1/C) sum_k g'[p, k] f2[p + s_k]
+        d f2[q]  = (1/C) sum_k g'[q - s_k, k] f1[q - s_k]
+
+    with s_k the k-th (dy, dx) shift and f2 zero outside the image. The
+    shifted windows of f2 are one ``unfold`` (im2col with zero padding d,
+    row-major over (dy, dx) like k), the scatter back onto f2 one ``fold``
+    (its adjoint); levels smaller than the window read the zero padding."""
+    d = max_displacement
+    b, h, w, c = f1.shape
+    k = 2 * d + 1
+    gc = g.to(torch.float32)
+    if slope is not None:
+        gc = torch.where(out >= 0, gc, gc * slope)
+    gc = (gc * (1.0 / c)).permute(0, 3, 1, 2).reshape(b, 1, k * k, h * w)
+    f2n = f2.to(torch.float32).permute(0, 3, 1, 2).contiguous()
+    win = F.unfold(f2n, k, padding=d).view(b, c, k * k, h * w)
+    df1 = (win * gc).sum(dim=2).view(b, c, h, w)
+    a = f1.to(torch.float32).permute(0, 3, 1, 2).reshape(b, c, 1, h * w)
+    df2 = F.fold((a * gc).view(b, c * k * k, h * w), (h, w), k, padding=d)
+    return (df1.permute(0, 2, 3, 1).to(f1.dtype).contiguous(),
+            df2.permute(0, 2, 3, 1).to(f2.dtype).contiguous())
+
+
+def _correlation_forward(f1, f2, d, slope, out_dtype):
+    if f1.device.type == "cpu":
+        return correlation_plain(f1, f2, d, slope, out_dtype)
+    return _correlation_cuda(f1, f2, d, slope, out_dtype)
+
+
+class _CorrelationFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, f1, f2, d, slope, out_dtype):
+        out = _correlation_forward(f1, f2, d, slope, out_dtype)
+        ctx.save_for_backward(f1, f2, out if slope is not None else None)
+        ctx.conf = (d, slope)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        f1, f2, out = ctx.saved_tensors
+        df1, df2 = correlation_backward(g, f1, f2, *ctx.conf, out)
+        return df1, df2, None, None, None
+
+
 def correlation(f1: torch.Tensor, f2: torch.Tensor, max_displacement: int = 4,
                 slope: Optional[float] = None,
                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(B, H, W, C) x 2 -> (B, H, W, (2d+1)^2) cost volume in out_dtype,
-    LeakyReLU'd with ``slope`` when it is given."""
-    if f1.device.type == "cpu":
-        return correlation_plain(f1, f2, max_displacement, slope, out_dtype)
-    return _correlation_cuda(f1, f2, max_displacement, slope, out_dtype)
+    LeakyReLU'd with ``slope`` when it is given. Differentiable in f1, f2."""
+    if torch.is_grad_enabled() and (f1.requires_grad or f2.requires_grad):
+        return _CorrelationFn.apply(f1, f2, max_displacement, slope,
+                                    out_dtype)
+    return _correlation_forward(f1, f2, max_displacement, slope, out_dtype)
 
 
 correlation.launches = 0

@@ -12,6 +12,13 @@ The kernel reads its weights in a layout of its own,
 modules build it once per dtype and keep it (``models/common.py``);
 ``fused_conv3x3`` also takes the OIHW weight and prepares it per call.
 ``conv3x3_plan`` is the tile plan the wrapper hands the kernel.
+
+Gradients: with grad enabled and an input that requires it, the forward
+runs inside ``_Conv3x3Fn`` (an autograd Function) and ``conv3x3_backward``
+gives the gradients: the counterpart of the JAX package's ``_fc_bwd``,
+which is XLA's vjp of the plain conv, not a Pallas kernel. The backward
+never reruns the forward: the LeakyReLU's derivative comes from the saved
+output, dx and dW from cuDNN's (or the CPU's) conv gradients.
 """
 
 from __future__ import annotations
@@ -19,7 +26,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -275,10 +282,92 @@ def _conv3x3_cuda(x, prep, slope, dilation, res, res_repeat):
     return out
 
 
+def conv3x3_backward(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                     out: torch.Tensor, slope: float = 0.1, dilation: int = 1,
+                     res_repeat: int = 1,
+                     res_dtype: Optional[torch.dtype] = None,
+                     needs=(True, True, True, True)):
+    """Gradients of ``fused_conv3x3`` (before any shuffle) from the output's
+    gradient ``g`` and the saved input ``x``, OIHW weight ``w`` and output
+    ``out``: (dx, dw, db, dres), each None where ``needs`` says so; dres is
+    None too without a residual (``res_dtype`` None).
+
+    As XLA's vjp of the JAX package's ``_xla_conv``: the LeakyReLU passes g
+    where the output is >= 0 (slope > 0 keeps the sign of its input) and
+    slope * g elsewhere, in g's dtype; dx and dw are the conv's input and
+    weight gradients computed in x's dtype (bf16 x and g in bf16, with f32
+    accumulation inside), dw returned in w's dtype; db and dres are f32
+    sums, dres over each group of ``res_repeat`` batch items."""
+    gp = g if slope == 1.0 else torch.where(out >= 0, g, g * slope)
+    dt = x.dtype
+    gn = gp.to(dt).permute(0, 3, 1, 2)
+    pad = dict(padding=dilation, dilation=dilation)
+    dx = dw = db = dres = None
+    if needs[0]:
+        shape = (x.shape[0], x.shape[3], x.shape[1], x.shape[2])
+        dx = torch.nn.grad.conv2d_input(shape, w.to(dt), gn, **pad
+                                        ).permute(0, 2, 3, 1).contiguous()
+    if needs[1]:
+        dw = torch.nn.grad.conv2d_weight(x.permute(0, 3, 1, 2), w.shape, gn,
+                                         **pad).to(w.dtype)
+    if needs[2]:
+        db = gp.to(torch.float32).sum(dim=(0, 1, 2))
+    if needs[3] and res_dtype is not None:
+        b, h, wd, c = gp.shape
+        dres = (gp.to(torch.float32).reshape(b // res_repeat, res_repeat,
+                                             h, wd, c)
+                .sum(dim=1).to(res_dtype))
+    return dx, dw, db, dres
+
+
+def _conv3x3_forward(x, prep, w, b, slope, dilation, res, res_repeat):
+    """The kernel for CUDA tensors, the plain version for CPU ones; ``prep``
+    (the prepared weight) or else the OIHW ``w`` and ``b``."""
+    if x.device.type == "cpu":
+        if prep is not None:
+            w, b = unpack_conv3x3_weight(prep), prep.bias
+        return conv3x3_plain(x, w, b, slope, dilation, res, res_repeat)
+    tensors = [x, prep.packed if prep is not None else w]
+    _build.require_cuda("fused_conv3x3", *tensors,
+                        *([res] if res is not None else []))
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"fused_conv3x3: dtype {x.dtype} not in {_DTYPES}")
+    if prep is None:
+        prep = prepare_conv3x3_weight(w, b, x.dtype)
+    return _conv3x3_cuda(x, prep, slope, dilation, res, res_repeat)
+
+
+class _Conv3x3Fn(torch.autograd.Function):
+    """The fused conv with gradients to x, the OIHW ``w``, the bias ``b``
+    (None: no bias) and ``res``; ``prep`` is the kernel layout of (w, b)
+    or None."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, res, prep, slope, dilation, res_repeat):
+        out = _conv3x3_forward(x, prep, w, b, slope, dilation, res,
+                               res_repeat)
+        ctx.save_for_backward(x, w, out)
+        ctx.conf = (slope, dilation, res_repeat,
+                    None if res is None else res.dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, out = ctx.saved_tensors
+        slope, dilation, res_repeat, res_dtype = ctx.conf
+        dx, dw, db, dres = conv3x3_backward(
+            g, x, w, out, slope, dilation, res_repeat, res_dtype,
+            ctx.needs_input_grad[:4])
+        return dx, dw, db, dres, None, None, None, None
+
+
 def fused_conv3x3(x: torch.Tensor, w: Union[torch.Tensor, PreparedConv3x3],
                   b: Optional[torch.Tensor] = None, slope: float = 0.1,
                   dilation: int = 1, res: Optional[torch.Tensor] = None,
-                  res_repeat: int = 1, shuffle: bool = False) -> torch.Tensor:
+                  res_repeat: int = 1, shuffle: bool = False,
+                  params: Optional[Tuple[torch.Tensor,
+                                         Optional[torch.Tensor]]] = None
+                  ) -> torch.Tensor:
     """3x3 SAME conv + bias (+ res) + LeakyReLU (+ pixel_shuffle(2)).
 
     x: (B, H, W, Cin) NHWC, f32 or bf16. w: a ``PreparedConv3x3`` for x's
@@ -289,28 +378,32 @@ def fused_conv3x3(x: torch.Tensor, w: Union[torch.Tensor, PreparedConv3x3],
     the activation and shared by each group of ``res_repeat`` consecutive
     batch items. slope=1.0 makes the activation the identity. Output dtype
     = x's dtype.
+
+    Differentiable in x, res and the weights: an OIHW w and b themselves,
+    or, for a prepared w, ``params`` = (OIHW weight, f32 bias or None for a
+    zero bias) that it was prepared from. Without grad enabled, or with no
+    input that requires it, the forward runs with no autograd Function.
     """
     if isinstance(w, PreparedConv3x3):
         if b is not None:
             raise ValueError("fused_conv3x3: a prepared weight carries its bias")
         prep = w
         _check(x, prep.cin, prep.cout, res, res_repeat, dilation)
+        pw, pb = params if params is not None else (None, None)
     else:
         prep = None
         _check_oihw(x, w, b, res, res_repeat, dilation)
-    if x.device.type == "cpu":
-        if prep is not None:
-            w, b = unpack_conv3x3_weight(prep), prep.bias
-        out = conv3x3_plain(x, w, b, slope, dilation, res, res_repeat)
+        pw, pb = w, b
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, pw, pb, res)):
+        if pw is None:
+            raise ValueError("fused_conv3x3: gradients through a prepared "
+                             "weight need its params=(weight, bias)")
+        out = _Conv3x3Fn.apply(x, pw, pb, res, prep, slope, dilation,
+                               res_repeat)
     else:
-        tensors = [x, prep.packed if prep is not None else w]
-        _build.require_cuda("fused_conv3x3", *tensors,
-                            *([res] if res is not None else []))
-        if x.dtype not in _DTYPES:
-            raise TypeError(f"fused_conv3x3: dtype {x.dtype} not in {_DTYPES}")
-        if prep is None:
-            prep = prepare_conv3x3_weight(w, b, x.dtype)
-        out = _conv3x3_cuda(x, prep, slope, dilation, res, res_repeat)
+        out = _conv3x3_forward(x, prep, w, b, slope, dilation, res,
+                               res_repeat)
     return pixel_shuffle(out, 2) if shuffle else out
 
 

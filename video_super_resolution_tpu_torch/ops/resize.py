@@ -1,4 +1,5 @@
-"""Separable bilinear resize with the JAX package's pinned semantics.
+"""Separable bilinear and bicubic resize with the JAX package's pinned
+semantics.
 
 ``resize_bilinear`` is torch ``F.interpolate(mode="bilinear",
 align_corners=False)`` with replicate edges, computed the way the JAX
@@ -12,7 +13,11 @@ different numeric path and is kept as one:
 - anything else: fixed-width tap gathers with precomputed weights, summed
   tap by tap in f32.
 
-Bicubic resize and the antialias / align_corners options are not ported yet.
+``resize_bicubic`` is the JAX package's at the preset that
+``data/degrade.py`` uses, MATLAB ``imresize``: cubic a=-0.5, antialias,
+replicate edges; separable tap gathers along H then W with weights computed
+once per shape. The JAX resizes' other presets (torch-style a=-0.75,
+align_corners, excluded edges, antialiased bilinear) are not ported.
 """
 
 from __future__ import annotations
@@ -32,20 +37,48 @@ def edge_pad(x: torch.Tensor, axis: int, lo: int, hi: int) -> torch.Tensor:
     return x.index_select(axis, idx)
 
 
-def _linear_weights(in_size: int, out_size: int):
-    """Tap indices (out, K) and weights (out, K) of a bilinear resample with
-    replicate edges (out-of-range taps clamp to the border)."""
+def _cubic_kernel(x: np.ndarray, a: float) -> np.ndarray:
+    ax = np.abs(x)
+    ax2, ax3 = ax * ax, ax * ax * ax
+    return np.where(
+        ax <= 1, (a + 2) * ax3 - (a + 3) * ax2 + 1,
+        np.where(ax < 2, a * ax3 - 5 * a * ax2 + 8 * a * ax - 4 * a, 0.0))
+
+
+def _resample_weights(in_size: int, out_size: int, cubic: bool = False):
+    """Tap indices (out, K) int64 and weights (out, K) f32 of one axis's
+    resample; out-of-range taps clamp to the border. Linear: plain
+    half-pixel taps. Cubic: MATLAB ``imresize``, a=-0.5 with antialias,
+    which widens the kernel by the downscale factor."""
     scale = in_size / out_size
-    k_width = 4
-    out_idx = np.arange(out_size, dtype=np.float64)
-    centers = (out_idx + 0.5) * scale - 0.5
-    first = np.floor(centers - 1.0) + 1
+    support = 2.0 if cubic else 1.0
+    s = scale if (cubic and scale > 1.0) else 1.0
+    k_width = int(math.ceil(support * s)) * 2 + 2
+    centers = (np.arange(out_size, dtype=np.float64) + 0.5) * scale - 0.5
+    first = np.floor(centers - support * s) + 1
     taps = first[:, None] + np.arange(k_width)[None, :]
-    w = np.maximum(1 - np.abs(centers[:, None] - taps), 0.0)
+    dist = (centers[:, None] - taps) / s
+    w = (_cubic_kernel(dist, -0.5) if cubic
+         else np.maximum(1 - np.abs(dist), 0.0))
     wsum = w.sum(axis=1, keepdims=True)
     w = w / np.where(wsum == 0, 1.0, wsum)
     idx = np.clip(taps, 0, in_size - 1).astype(np.int64)
     return idx, w.astype(np.float32)
+
+
+def _gather_axis(x: torch.Tensor, axis: int, idx: np.ndarray,
+                 w: np.ndarray) -> torch.Tensor:
+    """sum_k w[:, k] * x.take(idx[:, k], axis), tap by tap in f32."""
+    idx_t = torch.from_numpy(idx).to(x.device)
+    w_t = torch.from_numpy(w).to(x.device)
+    wshape = [1] * x.ndim
+    wshape[axis] = idx.shape[0]
+    out = None
+    for k in range(idx.shape[1]):
+        g = x.index_select(axis, idx_t[:, k]).to(torch.float32)
+        term = g * w_t[:, k].reshape(wshape)
+        out = term if out is None else out + term
+    return out
 
 
 def _phase_taps(p: int, r: int):
@@ -107,17 +140,7 @@ def _resample_axis(x: torch.Tensor, axis: int, out_size: int) -> torch.Tensor:
         shape[axis] = out_size
         shape.insert(axis + 1, 2)
         return x.to(torch.float32).reshape(shape).mean(dim=axis + 1)
-    idx, w = _linear_weights(in_size, out_size)
-    idx_t = torch.from_numpy(idx).to(x.device)
-    w_t = torch.from_numpy(w).to(x.device)
-    wshape = [1] * x.ndim
-    wshape[axis] = out_size
-    out = None
-    for k in range(idx.shape[1]):
-        g = x.index_select(axis, idx_t[:, k]).to(torch.float32)
-        term = g * w_t[:, k].reshape(wshape)
-        out = term if out is None else out + term
-    return out
+    return _gather_axis(x, axis, *_resample_weights(in_size, out_size))
 
 
 def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
@@ -132,4 +155,16 @@ def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
         return pixel_shuffle(upsample_bilinear_ps(x, r), r).to(dtype)
     y = _resample_axis(x, h_ax, out_h)
     y = _resample_axis(y, h_ax + 1, out_w)
+    return y.to(dtype)
+
+
+def resize_bicubic(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """MATLAB-preset bicubic resize of (..., H, W, C) (or (H, W)) to
+    out_h x out_w, H first; returns the input dtype."""
+    dtype = x.dtype
+    h_ax = x.ndim - 3 if x.ndim >= 3 else 0
+    y = x
+    for axis, size in ((h_ax, out_h), (h_ax + 1, out_w)):
+        y = _gather_axis(y, axis, *_resample_weights(y.shape[axis], size,
+                                                     cubic=True))
     return y.to(dtype)
