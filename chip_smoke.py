@@ -58,9 +58,41 @@ the JAX package. Phases, each of which fails the run on error:
    - checkpoint: save, restore into a fresh state, bit-equal;
    - eval: ``evaluate_all`` PSNR/SSIM on a synthetic clip, bf16 and f32.
 
+Between phases 5 and 6, the reference-era model options at full width:
+
+- reference-era forward: ``serving_config(warp_features=True,
+  sr_head_style="two_stage")``, bf16, the same window -> (1, 2160, 3840,
+  3): all three kernels launch, K1 with ``shuffle=True`` at 64 -> 256 on
+  540x960 and 1080x1920 and K4 at C = 65; each argument spec the serving
+  forward did not have is held and timed as in phase 3 (the shuffled
+  conv also without its shuffle's copy); ``sr_head.Conv_1`` at 4K (the
+  tap-sum against F.conv2d); phase 4's throughput and profile (with the
+  stages' ``record_function`` spans) beside the espcn forward's; phase
+  5's f32 parity;
+- ``serving_config(sr_espcn_mid=256)``: one forward, its new specs held
+  and timed, throughput and profile.
+
+After phase 6:
+
+- probe: one line saying whether g++, png.h, libpng16 and PIL exist; the
+  native loader is built when g++ and png.h do, and the clip and CLI
+  phase runs when PIL does (it reads and writes PNGs);
+- clip and CLI: a 5-frame 540x960 PNG clip through ``api.upscale_clip``,
+  which must equal ``eval_step`` on each window (frames/s); ``cli train``
+  at ``VSRConfig()`` for 20 steps on HR-only 256x256 PNG clips (its log's
+  ``native_loader`` must be 1 when the native loader is buildable, else 0;
+  steps/s beside phase 6's in-memory loop), ``cli eval`` and ``cli infer``
+  (5 PNGs of 3840x2160) on its checkpoint, ``cli import-weights`` on a
+  saved state_dict;
+- async checkpoint: the time ``save`` blocks against ``wait()``; the
+  parameters are changed right after ``save`` and the restore is still
+  bit-equal to the state at ``save``.
+
 The last two lines are the ``{"kernels": [...]}`` summary (per-forward
 totals over the serving forward's specs; ``launches`` counts the serving
-forward, ``train_step_launches`` one train step) and
+forward, ``train_step_launches`` one train step, ``ref_era_launches`` and
+``espcn_mid_launches`` the two option forwards, ``new_specs`` the option
+forwards' new argument specs with their times) and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -88,6 +120,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,           # dense tensor-core bf16
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
 MODEL_TOL = (2e-3, 5e-4)                        # composed-model rtol, atol
 WINDOW = (1, 3, 540, 960, 3)
+STAGES = ("flow", "depth", "warp", "encode", "fusion", "sr")
 TIMED_FORWARDS = 40
 GRAPH_CALLS = 10
 
@@ -152,7 +185,7 @@ class Kernels:
         self.wrappers = {"conv3x3": fused_conv.fused_conv3x3,
                          "correlation": correlation.correlation,
                          "warp": warp.backward_warp}
-        self.plain = {"conv3x3": fused_conv.conv3x3_plain,
+        self.plain = {"conv3x3": conv_plain,
                       "correlation": correlation.correlation_plain,
                       "warp": warp.warp_plain}
         self.sources = {
@@ -203,8 +236,6 @@ class Kernels:
 
     def plain_path(self):
         """Call sites run the plain PyTorch versions on the card."""
-        from video_super_resolution_tpu_torch.ops.pixel_shuffle import pixel_shuffle
-
         from video_super_resolution_tpu_torch.ops.fused_conv import (
             PreparedConv3x3,
             unpack_conv3x3_weight,
@@ -224,10 +255,20 @@ class Kernels:
                         w, b = params
                         b = (torch.zeros(w.shape[0], device=x.device)
                              if b is None else b.to(x.dtype))
-                out = plain(x, w, b, slope, dilation, res, res_repeat)
-                return pixel_shuffle(out, 2) if shuffle else out
+                return plain(x, w, b, slope, dilation, res, res_repeat, shuffle)
             return conv
         return self.patched(make)
+
+
+def conv_plain(x, w, b, slope=0.1, dilation=1, res=None, res_repeat=1,
+               shuffle=False):
+    """The conv kernel's plain version, then pixel_shuffle(2) if shuffle (as
+    ``fused_conv3x3`` applies it after the kernel)."""
+    from video_super_resolution_tpu_torch.ops.fused_conv import conv3x3_plain
+    from video_super_resolution_tpu_torch.ops.pixel_shuffle import pixel_shuffle
+
+    out = conv3x3_plain(x, w, b, slope, dilation, res, res_repeat)
+    return pixel_shuffle(out, 2) if shuffle else out
 
 
 def spec_of(name, a):
@@ -238,7 +279,7 @@ def spec_of(name, a):
                 w.shape[0] if isinstance(w, torch.Tensor) else w.cout,
                 a["dilation"], float(a["slope"]),
                 None if res is None else (tuple(res.shape), res.dtype),
-                a["res_repeat"])
+                a["res_repeat"], bool(a["shuffle"]))
     if name == "correlation":
         return (tuple(a["f1"].shape), a["f1"].dtype, a["max_displacement"],
                 a["slope"], a["out_dtype"])
@@ -253,6 +294,10 @@ def make_case(name, spec, dtype, gen):
     import torch.nn.functional as F
 
     from video_super_resolution_tpu_torch.ops.fused_conv import prepare_conv3x3_weight
+    from video_super_resolution_tpu_torch.utils.profiling import (
+        correlation_roofline_ms,
+        warp_roofline_ms,
+    )
 
     dev = "cuda"
 
@@ -260,7 +305,7 @@ def make_case(name, spec, dtype, gen):
         return torch.randn(shape, generator=gen, device=dev).to(dt)
 
     if name == "conv3x3":
-        xs, _, cout, d, slope, res, rr = spec
+        xs, _, cout, d, slope, res, rr, shuffle = spec
         b, h, w, cin = xs
         x = rn(xs, dtype)
         wt = rn((cout, cin, 3, 3), torch.float32) / math.sqrt(9 * cin)
@@ -270,8 +315,8 @@ def make_case(name, spec, dtype, gen):
             rdt = torch.float32 if res[1] == torch.float32 else dtype
             r = rn(res[0], rdt)
         prep = prepare_conv3x3_weight(wt, bias, dtype)
-        args = (x, prep, None, slope, d, r, rr)
-        plain_args = (x, wt, prep.bias, slope, d, r, rr)
+        args = (x, prep, None, slope, d, r, rr, shuffle)
+        plain_args = (x, wt, prep.bias, slope, d, r, rr, shuffle)
         wl, bl = wt.to(dtype), bias.to(dtype)
         xn = x.permute(0, 3, 1, 2)
         lib = lambda: F.conv2d(xn, wl, bl, padding=d, dilation=d)  # noqa: E731
@@ -285,12 +330,9 @@ def make_case(name, spec, dtype, gen):
         od = dtype if out_dt == in_dt else out_dt   # the forward's: out = in
         b, h, w, c = xs
         f1, f2 = rn(xs, dtype), rn(xs, dtype)
-        k = (2 * d + 1) ** 2
-        flops = 2 * b * h * w * c * k
-        nbytes = (2 * f1.numel() * f1.element_size()
-                  + b * h * w * k * od.itemsize)
+        r = correlation_roofline_ms(b, h, w, c, d, dtype.itemsize, od.itemsize)
         args = (f1, f2, d, slope, od)
-        return args, args, None, flops, nbytes
+        return args, args, None, r["flops"], r["bytes"]
     xs, _, mode = spec
     b, h, w, c = xs
     img = rn(xs, dtype)
@@ -303,9 +345,8 @@ def make_case(name, spec, dtype, gen):
     grid = grid.to(dtype)
     lib = lambda: F.grid_sample(imn, grid, mode="bilinear",  # noqa: E731
                                 padding_mode=mode, align_corners=True)
-    flops = 7 * b * h * w * c
-    nbytes = 2 * img.numel() * img.element_size() + flow.numel() * 4
-    return (img, flow, mode), (img, flow, mode), lib, flops, nbytes
+    r = warp_roofline_ms(b, h, w, c, dtype.itemsize)
+    return (img, flow, mode), (img, flow, mode), lib, r["flops"], r["bytes"]
 
 
 def plan_note(name, spec, args):
@@ -324,6 +365,9 @@ def plan_note(name, spec, args):
     note = (f"; plan: route {p.route} (Cx {p.cx}), kc {p.kc}, tile "
             f"{p.th}x{p.tw} px x {p.bn} ch, {p.tiles} tiles, split-K "
             f"{p.splits}")
+    if spec[7]:     # the wrapper's time includes the pixel_shuffle's copy
+        ms = graph_ms(lambda: fc.fused_conv3x3(*args[:7]))
+        note += f"; {ms:.4f} ms without the shuffle (the kernel alone)"
     if p.route == "tma+pad":
         x, prep = args[0], args[1]
         pad = (0, p.cx - x.shape[3])
@@ -415,10 +459,9 @@ def kernel_name(line):
     return line.split("'")[1] if "'" in line else line.strip()
 
 
-def phase_forward(kernels):
-    from video_super_resolution_tpu_torch import api, serving_config
+def phase_forward(kernels, cfg, label="serving"):
+    from video_super_resolution_tpu_torch import api
 
-    cfg = serving_config()
     model = api.build_model(cfg, device="cuda", seed=0)
     gen = torch.Generator().manual_seed(1)
     window = torch.rand(WINDOW, generator=gen).cuda()
@@ -429,7 +472,7 @@ def phase_forward(kernels):
         torch.cuda.synchronize()
         counts = kernels.counts()
     want = (1, 4 * WINDOW[2], 4 * WINDOW[3], 3)
-    log(f"[forward] bf16 serving forward {tuple(window.shape)} -> "
+    log(f"[forward] bf16 {label} forward {tuple(window.shape)} -> "
         f"{tuple(hr.shape)}; launches {counts}")
     if tuple(hr.shape) != want:
         raise AssertionError(f"output shape {tuple(hr.shape)} != {want}")
@@ -447,6 +490,50 @@ def phase_forward(kernels):
     return model, window, calls, counts
 
 
+def check_spec(kernels, name, spec, n, gen):
+    """The kernel at one recorded argument spec (n calls a forward): held
+    against its plain version in f32 and bf16 (TOL), timed at the spec's
+    own dtype beside the plain version, the library call and the bound.
+    Returns that dtype's numbers."""
+    main_dt = spec[1]
+    for dt in (torch.float32, torch.bfloat16):
+        args, pargs, lib, flops, nbytes = make_case(name, spec, dt, gen)
+        out = kernels.wrappers[name](*args)
+        ref = kernels.plain[name](*pargs)
+        torch.cuda.synchronize()
+        rtol, atol = TOL[dt]
+        err = (out.float() - ref.float()).abs().max().item()
+        ok = torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol)
+        line = (f"[kernel] {name} {spec[0]} {str(dt)[6:]} "
+                f"extra={spec[2:]} x{n}: max|diff| {err:.3e}")
+        del out, ref
+        if not ok:
+            raise AssertionError(line + f" exceeds rtol {rtol} atol {atol}")
+        if dt != main_dt:
+            log(line)
+            continue
+        t_h = cuda_ms(lambda: kernels.wrappers[name](*args))
+        t_k = graph_ms(lambda: kernels.wrappers[name](*args))
+        t_p = graph_ms(lambda: kernels.plain[name](*pargs))
+        t_l = graph_ms(lib) if lib is not None else None
+        b_ms, b_by = bound_ms(flops, nbytes, dt)
+        rate = flops / t_k / 1e9
+        log(line + f"; kernel {t_k:.4f} ms device ({t_h:.4f} "
+            f"host-incl.), plain {t_p:.4f} ms, library "
+            f"{'null' if t_l is None else f'{t_l:.4f} ms'}, bound "
+            f"{b_ms:.4f} ms ({b_by}) = {b_ms / t_k:.3f} of the "
+            f"kernel's time, {rate:.1f} TFLOP/s = "
+            f"{rate * 1e12 / PEAK_FLOPS[dt]:.4f} of the "
+            f"{str(dt)[6:]} peak" + plan_note(name, spec, args))
+        result = dict(err=err, ms=t_k, plain_ms=t_p, library_ms=t_l,
+                      bound_ms=b_ms, bound_by=b_by,
+                      ops_ms=flops / PEAK_FLOPS[dt] * 1e3,
+                      bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+    del args, pargs, lib
+    torch.cuda.empty_cache()
+    return result
+
+
 def phase_kernels(kernels, calls, counts):
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
@@ -456,45 +543,14 @@ def phase_kernels(kernels, calls, counts):
         has_lib = True
         max_err = 0.0
         for spec, n in sorted(calls[name].items(), key=lambda kv: str(kv[0])):
-            main_dt = spec[1]
-            for dt in (torch.float32, torch.bfloat16):
-                args, pargs, lib, flops, nbytes = make_case(name, spec, dt, gen)
-                out = kernels.wrappers[name](*args)
-                ref = kernels.plain[name](*pargs)
-                torch.cuda.synchronize()
-                rtol, atol = TOL[dt]
-                err = (out.float() - ref.float()).abs().max().item()
-                ok = torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol)
-                line = (f"[kernel] {name} {spec[0]} {str(dt)[6:]} "
-                        f"extra={spec[2:]} x{n}: max|diff| {err:.3e}")
-                if not ok:
-                    raise AssertionError(line + f" exceeds rtol {rtol} atol {atol}")
-                if dt != main_dt:
-                    log(line)
-                    continue
-                max_err = max(max_err, err)
-                t_h = cuda_ms(lambda: kernels.wrappers[name](*args))
-                t_k = graph_ms(lambda: kernels.wrappers[name](*args))
-                t_p = graph_ms(lambda: kernels.plain[name](*pargs))
-                t_l = graph_ms(lib) if lib is not None else None
-                b_ms, b_by = bound_ms(flops, nbytes, dt)
-                rate = flops / t_k / 1e9
-                log(line + f"; kernel {t_k:.4f} ms device ({t_h:.4f} "
-                    f"host-incl.), plain {t_p:.4f} ms, library "
-                    f"{'null' if t_l is None else f'{t_l:.4f} ms'}, bound "
-                    f"{b_ms:.4f} ms ({b_by}) = {b_ms / t_k:.3f} of the "
-                    f"kernel's time, {rate:.1f} TFLOP/s = "
-                    f"{rate * 1e12 / PEAK_FLOPS[dt]:.4f} of the "
-                    f"{str(dt)[6:]} peak" + plan_note(name, spec, args))
-                tot["ms"] += n * t_k
-                tot["plain_ms"] += n * t_p
-                tot["bound_ms"] += n * b_ms
-                tot["ops_ms"] += n * flops / PEAK_FLOPS[dt] * 1e3
-                tot["bytes_ms"] += n * nbytes / HBM_BYTES_PER_S * 1e3
-                if t_l is None:
-                    has_lib = False
-                else:
-                    tot["lib_ms"] += n * t_l
+            r = check_spec(kernels, name, spec, n, gen)
+            max_err = max(max_err, r["err"])
+            for k in ("ms", "plain_ms", "bound_ms", "ops_ms", "bytes_ms"):
+                tot[k] += n * r[k]
+            if r["library_ms"] is None:
+                has_lib = False
+            else:
+                tot["lib_ms"] += n * r["library_ms"]
         if name == "conv3x3":
             host_note(kernels, calls[name], gen)
         src, replaces = kernels.sources[name]
@@ -511,7 +567,7 @@ def phase_kernels(kernels, calls, counts):
     return rows
 
 
-def phase_throughput(model, window):
+def phase_throughput(model, window, label="serving"):
     """Per-forward device time of back-to-back bf16 forwards (one CUDA event
     between consecutive forwards): median and p75, the highest percentile
     with at least ten samples above it."""
@@ -534,19 +590,20 @@ def phase_throughput(model, window):
     median = statistics.median(times)
     p75 = times[TIMED_FORWARDS - 11]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"[throughput] bf16 serving forward 540x960 -> 2160x3840, "
+    log(f"[throughput] bf16 {label} forward 540x960 -> 2160x3840, "
         f"{TIMED_FORWARDS} forwards: median {median:.3f} ms/frame "
         f"({1000.0 / median:.3f} frames/s), p75 {p75:.3f} ms, min "
         f"{times[0]:.3f} ms, max {times[-1]:.3f} ms (CUDA events); host wall "
         f"{wall / TIMED_FORWARDS * 1e3:.3f} ms/frame; peak memory "
         f"{peak:.3f} GiB")
-    return median
+    return {"median": median, "p75": p75, "peak_gib": peak}
 
 
-def phase_profile(model, window):
+def phase_profile(model, window, label="serving"):
     """One bf16 forward under torch.profiler: device time by kernel group
     and the idle share between the first kernel's start and the last
-    kernel's end (one stream, so kernels do not overlap)."""
+    kernel's end (one stream, so kernels do not overlap); the model's
+    stage ranges (``record_function``) as the device spans them."""
     from torch.profiler import ProfilerActivity, profile
 
     from video_super_resolution_tpu_torch import api
@@ -565,11 +622,19 @@ def phase_profile(model, window):
     groups = collections.Counter()
     for e in kernels:
         groups[kernel_group(e.name)] += e.time_range.end - e.time_range.start
-    log(f"[profile] one forward: {len(kernels)} device events, span "
+    log(f"[profile] {label}, one forward: {len(kernels)} device events, span "
         f"{(end - start) / 1e3:.3f} ms, busy {busy / 1e3:.3f} ms, idle share "
         f"{1 - busy / (end - start):.4f}")
     for g, us in groups.most_common():
         log(f"[profile] {g}: {us / 1e3:.3f} ms ({us / busy:.4f} of busy)")
+    stages = collections.Counter()
+    for e in prof.events():
+        if (e.name in STAGES and e.device_type == torch.autograd.DeviceType.CUDA
+                and e.time_range.end > e.time_range.start):
+            stages[e.name] += e.time_range.end - e.time_range.start
+    log("[profile] stage spans on the device (record_function ranges): "
+        + ("; ".join(f"{n} {stages[n] / 1e3:.3f} ms" for n in STAGES
+                     if n in stages) or "not recorded"))
 
 
 def device_events(prof):
@@ -604,10 +669,9 @@ def kernel_group(name):
     return "other"
 
 
-def phase_f32(kernels, window):
-    from video_super_resolution_tpu_torch import api, serving_config
+def phase_f32(kernels, window, cfg, label="serving"):
+    from video_super_resolution_tpu_torch import api
 
-    cfg = serving_config()
     cfg = cfg.replace(train=dataclasses.replace(cfg.train,
                                                 compute_dtype="float32"))
     model = api.build_model(cfg, device="cuda", seed=0)
@@ -622,7 +686,7 @@ def phase_f32(kernels, window):
         if sum(kernels.counts().values()) != 0:
             raise AssertionError("plain path launched a kernel")
     err = (out_k - out_p).abs().max().item()
-    log(f"[f32] serving forward, kernels ({n_k} launches) vs plain on the "
+    log(f"[f32] {label} forward, kernels ({n_k} launches) vs plain on the "
         f"card: max|diff| {err:.3e}, |out| max {out_p.abs().max().item():.3f}")
     if not torch.allclose(out_k, out_p, rtol=rtol, atol=atol):
         raise AssertionError(f"f32 forward exceeds rtol {rtol} atol {atol}")
@@ -797,7 +861,7 @@ def train_case(name, spec, dtype, gen):
                 ).to(dt).requires_grad_()
 
     if name == "conv3x3":
-        xs, _, cout, d, slope, res, rr = spec
+        xs, _, cout, d, slope, res, rr, _ = spec
         b, h, w, cin = xs
         ins = [rn(xs, dtype), rn((cout, cin, 3, 3), torch.float32,
                                  1 / math.sqrt(9 * cin)),
@@ -897,7 +961,7 @@ def phase_train_loop(train_ds, tmp):
         f"{peak:.3f} GiB; last loss {timed[-1]['loss']:.5f}")
     if out["state"].step != WARM_TRAIN_STEPS + TIMED_TRAIN_STEPS:
         raise AssertionError("train() stopped at the wrong step")
-    return out["state"], cfg
+    return out["state"], cfg, sps
 
 
 def phase_train_profile(state, batch):
@@ -1006,11 +1070,286 @@ def phase_train(kernels):
     phase_train_kernels(kernels, calls)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        state, cfg = phase_train_loop(train_ds, tmp)
+        state, cfg, sps = phase_train_loop(train_ds, tmp)
         state = phase_train_profile(state, batch)
         phase_checkpoint(state, cfg, tmp)
     phase_eval(state, eval_ds)
-    return launches
+    return {"launches": launches, "sps": sps, "state": state, "cfg": cfg}
+
+
+# ---------------------------------------- reference-era options at full width
+
+def check_new_specs(kernels, calls, seen, tag):
+    """Each argument spec of ``calls`` that ``seen`` lacks, held against its
+    plain version and timed (check_spec); returns one summary a spec."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    out = []
+    for name in ("conv3x3", "correlation", "warp"):
+        for spec, n in sorted(calls[name].items(), key=lambda kv: str(kv[0])):
+            if spec in seen[name]:
+                continue
+            r = check_spec(kernels, name, spec, n, gen)
+            out.append({"kernel": name, "shape": list(spec[0]),
+                        "dtype": str(spec[1])[6:], "extra": str(spec[2:]),
+                        "calls": n, "max_abs_err": r["err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"]})
+            log(f"[{tag}] new spec: {json.dumps(out[-1])}")
+    return out
+
+
+def conv1_note(model):
+    """The two_stage head's final conv (64 -> 3 at 2160x3840, f32): the
+    port's tap-sum (``SmallOutConv``) against one F.conv2d on the same
+    channels-last input, device time by CUDA-graph replay."""
+    import torch.nn.functional as F
+
+    conv = model.sr_head.Conv_1
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((1, 2160, 3840, 64), generator=gen, device="cuda")
+    w, b = conv.weight.detach(), conv.bias.detach()
+    xn = x.permute(0, 3, 1, 2)                  # channels-last view, no copy
+    with torch.no_grad():
+        err = (conv(x) - F.conv2d(xn, w, b, padding=1).permute(0, 2, 3, 1)
+               ).abs().max().item()
+        t_tap = graph_ms(lambda: conv(x))
+        t_lib = graph_ms(lambda: F.conv2d(xn, w, b, padding=1))
+    flops = 2 * x.numel() * 3 * 9
+    nbytes = x.numel() * 4 + x.numel() // 64 * 3 * 4
+    b_ms, b_by = bound_ms(flops, nbytes, torch.float32)
+    log(f"[ref-era] sr_head.Conv_1 (1, 2160, 3840, 64) -> 3, f32: tap-sum "
+        f"{t_tap:.4f} ms, F.conv2d {t_lib:.4f} ms (max|diff| {err:.3e}), bound "
+        f"{b_ms:.4f} ms ({b_by})")
+    del x, xn
+    torch.cuda.empty_cache()
+
+
+def phase_ref_era(kernels, seen, serving):
+    """serving_config(warp_features=True, sr_head_style="two_stage") at full
+    width: the forward through all three kernels (K1 with shuffle=True at
+    540x960 and 1080x1920, K4 at C = 65), its new specs held and timed,
+    Conv_1 at 4K, throughput and a profile against the espcn forward, and
+    the f32 forward through the kernels against the plain path."""
+    from video_super_resolution_tpu_torch import serving_config
+
+    label = "reference-era (two_stage + warp_features)"
+    cfg = serving_config(warp_features=True, sr_head_style="two_stage")
+    model, window, calls, counts = phase_forward(kernels, cfg, label)
+    shuffled = sorted((sp[0], sp[2]) for sp in calls["conv3x3"] if sp[7])
+    wide = sorted(sp[0] for sp in calls["warp"] if sp[0][-1] == 65)
+    log(f"[ref-era] conv3x3 calls with shuffle=True: {shuffled}; warp calls "
+        f"at C = 65: {wide}")
+    want = [((1, 540, 960, 64), 256), ((1, 1080, 1920, 64), 256)]
+    if shuffled != want or wide != [(2, 544, 960, 65)]:
+        raise AssertionError("the reference-era forward did not call K1 with "
+                             "shuffle=True at 64 -> 256 on 540x960 and "
+                             "1080x1920, or K4 at C = 65")
+    specs = check_new_specs(kernels, calls, seen, "ref-era")
+    conv1_note(model)
+    tp = phase_throughput(model, window, label)
+    phase_profile(model, window, label)
+    log(f"[ref-era] {tp['median']:.3f} ms/frame against the espcn serving "
+        f"forward's {serving['median']:.3f} in this run "
+        f"({tp['median'] / serving['median']:.3f}x); peak memory "
+        f"{tp['peak_gib']:.3f} GiB against {serving['peak_gib']:.3f}")
+    del model
+    torch.cuda.empty_cache()
+    phase_f32(kernels, window, cfg, label)
+    return calls, counts, specs
+
+
+def phase_espcn_mid(kernels, seen, serving):
+    """serving_config(sr_espcn_mid=256) (QUALITY.md's 4 x C) at full width:
+    one bf16 forward through the kernels, its new K1 specs held and timed,
+    ms/frame and a profiled forward."""
+    from video_super_resolution_tpu_torch import serving_config
+
+    label = "espcn_mid=256"
+    model, window, calls, counts = phase_forward(
+        kernels, serving_config(sr_espcn_mid=256), label)
+    specs = check_new_specs(kernels, calls, seen, "espcn-mid")
+    if not any(sp["kernel"] == "conv3x3" and sp["shape"][-1] == 256
+               for sp in specs):
+        raise AssertionError("espcn_mid=256: no conv at Cin 256")
+    tp = phase_throughput(model, window, label)
+    phase_profile(model, window, label)
+    log(f"[espcn-mid] {tp['median']:.3f} ms/frame against the espcn serving "
+        f"forward's {serving['median']:.3f} in this run")
+    del model
+    torch.cuda.empty_cache()
+    return calls, counts, specs
+
+
+# ------------------------------------------------ clip, CLI and checkpoints
+
+def phase_probe():
+    """What the native loader's build and the clip/CLI phases need, on this
+    machine: one line; returns (PIL present, native loader buildable)."""
+    import ctypes.util
+    import importlib.util
+    import shutil
+
+    from video_super_resolution_tpu_torch.data import native_loader
+
+    missing = native_loader.missing()
+    gxx = shutil.which("g++") is not None
+    have = {"g++": gxx,
+            "png.h": "not checked (no g++)" if not gxx else not missing,
+            "libpng16": ctypes.util.find_library("png16") is not None,
+            "PIL": importlib.util.find_spec("PIL") is not None}
+    log("[probe] " + ", ".join(
+        f"{k}: {v if isinstance(v, str) else ('yes' if v else 'no')}"
+        for k, v in have.items())
+        + "; native loader "
+        + ("buildable" if not missing else
+           f"unavailable (missing {', '.join(missing)}): the CLI trains on "
+           f"the Python loader")
+        + ("; clip and CLI phases run" if have["PIL"] else
+           "; clip and CLI phases not run (no PIL to read and write PNGs)"))
+    return have["PIL"], not missing
+
+
+def write_clip(directory, frames):
+    from PIL import Image
+
+    os.makedirs(directory, exist_ok=True)
+    for i, f in enumerate(frames):
+        Image.fromarray((f.clip(0, 1) * 255.0 + 0.5).astype("uint8")).save(
+            os.path.join(directory, f"{i:04d}.png"))
+
+
+def cli_json(argv):
+    import io
+
+    from video_super_resolution_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    return json.loads(buf.getvalue()) if buf.getvalue().strip() else None
+
+
+def phase_clip_cli(tmp, train_sps, native_ok):
+    """A 5-frame 540x960 PNG clip through ``api.upscale_clip`` (equal to
+    ``eval_step`` on each window) and ``cli infer``; ``cli train`` at
+    VSRConfig() for 20 steps on HR-only 256x256 PNG clips (native loader
+    when buildable), ``cli eval`` on its checkpoint, ``cli import-weights``
+    on a saved state_dict."""
+    import numpy as np
+    from PIL import Image
+
+    from video_super_resolution_tpu_torch import api, serving_config
+    from video_super_resolution_tpu_torch.data import synthetic as syn
+    from video_super_resolution_tpu_torch.data.dataset import (
+        list_clips,
+        load_frame,
+        sliding_window_indices,
+    )
+
+    lr_root, hr_root = os.path.join(tmp, "lr"), os.path.join(tmp, "hr")
+    write_clip(os.path.join(lr_root, "clip"),
+               syn.moving_gradient_clip(5, 540, 960, 2.0, -1.0, seed=5)[0])
+    write_clip(os.path.join(hr_root, "smooth"),
+               syn.moving_gradient_clip(7, 256, 256, 2.0, -1.0, seed=6)[0])
+    write_clip(os.path.join(hr_root, "detail"), syn.detail_clip(7, 256, 256, seed=7))
+
+    clip = np.stack([load_frame(p) for p in list_clips(lr_root)["clip"]])
+    model = api.build_model(serving_config(), "cuda", seed=0)
+    api.eval_step(model, torch.from_numpy(clip[None, :3]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hr = api.upscale_clip(model, clip)
+    secs = time.perf_counter() - t0
+    equal = all(np.array_equal(hr[c], api.eval_step(model, torch.from_numpy(
+        clip[sliding_window_indices(5, c, 3)][None]))[0].cpu().numpy())
+        for c in range(5))
+    log(f"[clip] api.upscale_clip, bf16 serving, 5 frames 540x960 -> "
+        f"{tuple(hr.shape)}: {5 / secs:.3f} frames/s (host clock, copies to "
+        f"the host included); equal to eval_step on each window: {equal}")
+    if not equal or hr.shape != (5, 2160, 3840, 3):
+        raise AssertionError("upscale_clip differs from per-window eval_step")
+    del model, hr
+    torch.cuda.empty_cache()
+
+    ck = os.path.join(tmp, "cli_ckpt")
+    t0 = time.perf_counter()
+    cli_json(["train", "--hr-root", hr_root, "--ckpt-dir", ck, "--steps",
+              "20", "--set", "train.log_every=10", "train.ckpt_every=20"])
+    secs = time.perf_counter() - t0
+    with open(os.path.join(ck, "train.jsonl")) as f:
+        logs = [json.loads(line) for line in f]
+    native = logs[0].get("native_loader")
+    sps = [r["steps_per_s"] for r in logs if "steps_per_s" in r]
+    log(f"[cli] train, VSRConfig() bf16, 20 steps on HR-only 256x256 PNG "
+        f"clips: native_loader {native}; steps/s {[round(v, 3) for v in sps]} "
+        f"(steps 1-10 with warm-up, 11-20) against the in-memory "
+        f"training.loop.train's {train_sps:.3f} steps/s (train phase); call "
+        f"{secs:.1f} s")
+    if native != float(native_ok) or len(sps) != 2:
+        raise AssertionError(f"cli train log: {logs}")
+
+    res = cli_json(["eval", "--hr-root", hr_root, "--ckpt-dir", ck])
+    avg = res["__average__"]
+    log(f"[cli] eval at step {res['step']}: PSNR {avg['psnr']:.4f} dB, SSIM "
+        f"{avg['ssim']:.5f} over {avg['frames']} frames")
+    if res["step"] != 20 or not math.isfinite(avg["psnr"]) or avg["frames"] != 14:
+        raise AssertionError(f"cli eval: {res}")
+
+    out = os.path.join(tmp, "out")
+    t0 = time.perf_counter()
+    cli_json(["infer", "--lr-root", lr_root, "--out-dir", out, "--ckpt-dir", ck])
+    secs = time.perf_counter() - t0
+    files = sorted(os.listdir(os.path.join(out, "clip")))
+    sizes = {Image.open(os.path.join(out, "clip", f)).size for f in files}
+    log(f"[cli] infer: {len(files)} PNGs of {sizes} in {secs:.1f} s (model "
+        f"build, restore, 5 forwards, PNG encoding)")
+    if len(files) != 5 or sizes != {(3840, 2160)}:
+        raise AssertionError("cli infer did not write 5 frames of 3840x2160")
+
+    sd = torch.load(os.path.join(ck, "ckpt_20.pt"), map_location="cpu",
+                    weights_only=True)["model"]
+    path = os.path.join(tmp, "weights.pth")
+    torch.save({"state_dict": sd}, path)
+    shapes = cli_json(["import-weights", "--torch-ckpt", path])
+    ok = shapes == {k: list(v.shape) for k, v in sd.items()}
+    log(f"[cli] import-weights: {len(shapes)} tensors, shapes as saved: {ok}")
+    if not ok:
+        raise AssertionError("cli import-weights shapes differ")
+
+
+def phase_async_checkpoint(state, cfg, tmp):
+    """An asynchronous save of the trained VSRConfig() state: the time
+    ``save`` blocks (the host copy) against ``wait()`` (the write); the
+    parameters are changed right after ``save``, and the restore is still
+    bit-equal to the state at ``save``."""
+    from video_super_resolution_tpu_torch.training.checkpoint import CheckpointManager
+    from video_super_resolution_tpu_torch.training.state import create_train_state
+
+    mgr = CheckpointManager(os.path.join(tmp, "async"), keep=2)
+    want = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(state.step, state, cfg)
+    t_save = time.perf_counter() - t0
+    with torch.no_grad():
+        for p in state.model.parameters():
+            p.add_(1.0)
+    t0 = time.perf_counter()
+    mgr.wait()
+    t_wait = time.perf_counter() - t0
+    restored, at = mgr.restore(create_train_state(cfg, "cuda", seed=1))
+    got = restored.model.state_dict()
+    same = all(torch.equal(got[k], v) for k, v in want.items())
+    changed = not torch.equal(state.model.state_dict()[next(iter(want))],
+                              want[next(iter(want))])
+    size = os.path.getsize(mgr.path(at)) / 2 ** 20
+    log(f"[async-ckpt] save of step {at} ({size:.1f} MiB): save() blocked "
+        f"{t_save * 1e3:.1f} ms (copy to host memory), wait() {t_wait * 1e3:.1f} "
+        f"ms (the writer's torch.save and rename); parameters changed after "
+        f"save: {changed}; restore bit-equal to the state at save: {same}")
+    if not (same and changed and at == state.step):
+        raise AssertionError("async checkpoint restore is not the state at save")
 
 
 def main() -> int:
@@ -1018,6 +1357,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    import tempfile
+
+    from video_super_resolution_tpu_torch import serving_config
+
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
@@ -1025,16 +1368,29 @@ def main() -> int:
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     card = phase_build()
     kernels = Kernels()
-    model, window, calls, counts = phase_forward(kernels)
+    model, window, calls, counts = phase_forward(kernels, serving_config())
     rows = phase_kernels(kernels, calls, counts)
-    phase_throughput(model, window)
+    serving = phase_throughput(model, window)
     phase_profile(model, window)
     del model
     torch.cuda.empty_cache()
-    phase_f32(kernels, window)
-    train_launches = phase_train(kernels)
+    phase_f32(kernels, window, serving_config())
+    ref_calls, ref_counts, ref_specs = phase_ref_era(kernels, calls, serving)
+    seen = {k: set(calls[k]) | set(ref_calls[k]) for k in calls}
+    _, mid_counts, mid_specs = phase_espcn_mid(kernels, seen, serving)
+    train = phase_train(kernels)
+    have_pil, native_ok = phase_probe()
+    with tempfile.TemporaryDirectory() as tmp:
+        if have_pil:
+            phase_clip_cli(tmp, train["sps"], native_ok)
+        phase_async_checkpoint(train["state"], train["cfg"], tmp)
     for row in rows:
-        row["train_step_launches"] = train_launches[row["name"]]
+        name = row["name"]
+        row["train_step_launches"] = train["launches"][name]
+        row["ref_era_launches"] = ref_counts[name]
+        row["espcn_mid_launches"] = mid_counts[name]
+        row["new_specs"] = [sp for sp in ref_specs + mid_specs
+                            if sp["kernel"] == name]
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

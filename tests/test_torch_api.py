@@ -62,11 +62,10 @@ def test_build_model_on_cpu_is_seeded():
                            sc["sr_head.subpixel_conv.weight"])
 
 
-def test_unported_options_raise():
-    for kw in (dict(warp_features=True), dict(sr_head_style="two_stage"),
-               dict(sr_espcn_mid=32)):
-        with pytest.raises(NotImplementedError):
-            VSRModel(dataclasses.replace(serving_config().model, **kw))
+def test_unknown_sr_head_style_raises():
+    with pytest.raises(ValueError, match="sr_head_style"):
+        VSRModel(dataclasses.replace(serving_config().model,
+                                     sr_head_style="pixelshuffle"))
 
 
 def test_config_json_round_trip_matches_jax_package():

@@ -19,6 +19,7 @@ from video_super_resolution_tpu_torch.ops.fused_conv import (
     fused_conv3x3,
     prepare_conv3x3_weight,
 )
+from video_super_resolution_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 from video_super_resolution_tpu_torch.ops.warp import backward_warp, warp_plain
 
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
@@ -177,6 +178,36 @@ def test_warp_kernel_serving_shapes(gen, dtype, shape):
     assert torch.equal(out, warp_plain(img, flow))
 
 
+# the two_stage head's upsample stages (64 -> 256, shuffled) and the
+# warp_features model's feature + depth warp (C = 65, bf16; 33 is another
+# odd C): shapes of the serving window cut to a few rows
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,h,w", [(1, 34, 960), (1, 20, 1920)])
+def test_conv3x3_kernel_shuffled_upsample(gen, dtype, b, h, w):
+    x = rn(gen, (b, h, w, 64), dtype)
+    wt = rn(gen, (256, 64, 3, 3)) / 24.0
+    bias = rn(gen, (256,), dtype)
+    before = fused_conv3x3.launches
+    out = fused_conv3x3(x, wt, bias, 0.1, shuffle=True)
+    assert fused_conv3x3.launches == before + 1
+    assert tuple(out.shape) == (b, 2 * h, 2 * w, 64) and out.dtype == dtype
+    close(out, pixel_shuffle(conv3x3_plain(x, wt, bias, 0.1), 2), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mode", ["zeros", "border"])
+@pytest.mark.parametrize("c", [65, 33])
+def test_warp_kernel_odd_channels_at_feature_warp_shape(gen, dtype, mode, c):
+    img = rn(gen, (2, 68, 960, c), dtype)
+    flow = rn(gen, (2, 68, 960, 2)) * 3.0
+    flow[:, ::7] *= 20.0
+    out = backward_warp(img, flow, mode)
+    torch.cuda.synchronize()
+    assert torch.equal(out, warp_plain(img, flow, mode))
+
+
 @pytest.mark.cuda
 def test_kernels_reject_what_they_do_not_take(gen):
     x = rn(gen, (1, 8, 8, 16))
@@ -245,6 +276,21 @@ def test_conv3x3_backward_matches_plain_autograd(gen, dtype, b, h, w, cin,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
+def test_conv3x3_backward_shuffled_upsample(gen, dtype):
+    """The two_stage head's stage: gradients through the shuffle too."""
+    x = rn(gen, (2, 32, 32, 64), dtype).requires_grad_()
+    wt = (rn(gen, (256, 64, 3, 3)) / 24.0).requires_grad_()
+    bias = (rn(gen, (256,)) * 0.1).requires_grad_()
+    g = rn(gen, (2, 64, 64, 64), dtype)
+    out = fused_conv3x3(x, wt, bias, 0.1, shuffle=True)
+    got = torch.autograd.grad(out, [x, wt, bias], g)
+    lin = pixel_shuffle(conv3x3_plain(x, wt, bias, 1.0), 2)
+    want = torch.autograd.grad(lin, [x, wt, bias], lrelu_grad(out, g, 0.1))
+    grad_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_conv3x3_backward_through_prepared_weight(gen, dtype):
     x = rn(gen, (4, 64, 64, 64), dtype).requires_grad_()
     wt = (rn(gen, (64, 64, 3, 3)) / 24.0).requires_grad_()
@@ -282,7 +328,9 @@ def test_correlation_backward_matches_plain_autograd(gen, dtype, shape):
 @pytest.mark.parametrize("shape,dtype", [
     ((8, 64, 64, 4), torch.float32), ((8, 16, 16, 32), torch.float32),
     ((8, 16, 16, 32), torch.bfloat16), ((8, 8, 8, 64), torch.bfloat16),
-    ((8, 4, 4, 96), torch.bfloat16)])
+    ((8, 4, 4, 96), torch.bfloat16),
+    # the warp_features model's feature + depth warp
+    ((8, 64, 64, 65), torch.float32), ((8, 64, 64, 65), torch.bfloat16)])
 def test_warp_backward_matches_plain_autograd(gen, mode, shape, dtype):
     """The frame + depth warp (f32, C = 4) and the feature warps (bf16 in
     the train step); flows of +-3 px, some taps outside the image."""

@@ -115,7 +115,9 @@ def _port_conv(x, k, bias, **kw):
     dict(b=2, cin=32, cout=16, slope=1.0, dilation=1, res_repeat=2),
     dict(b=1, cin=32, cout=16, slope=0.1, dilation=1, res_repeat=1),
     dict(b=1, cin=32, cout=16, slope=0.1, dilation=1, shuffle=True),
-], ids=["plain", "dilated", "res_repeat2", "res", "shuffle"])
+    # the two_stage head's upsample stage: features -> 4 x features
+    dict(b=2, cin=32, cout=128, slope=0.1, dilation=1, shuffle=True),
+], ids=["plain", "dilated", "res_repeat2", "res", "shuffle", "shuffle_x4"])
 def test_conv_plain_matches_pallas_kernel(rng, case):
     """fused_conv3x3's CPU path vs the Pallas kernel in interpret mode
     (cin >= 32 so the JAX wrapper does not route to XLA)."""

@@ -4,6 +4,8 @@
   weights carried from the JAX package with ``weights.from_jax_params``).
 - ``upscale_window``: (B, T, h, w, 3) LR window -> (B, 4h, 4w, 3).
 - ``eval_step``: the same forward, f32 output clipped to [0, 1].
+- ``upscale_clip``: (T, h, w, 3) frames -> (T, 4h, 4w, 3), one window
+  a frame through ``eval_step``.
 - ``estimate_and_align``: flow of each neighbor onto the reference and the
   warped neighbors.
 
@@ -15,9 +17,11 @@ from __future__ import annotations
 
 from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from video_super_resolution_tpu_torch.config import VSRConfig
+from video_super_resolution_tpu_torch.data.dataset import sliding_window_indices
 from video_super_resolution_tpu_torch.models.common import init_params, pad_to_multiple
 from video_super_resolution_tpu_torch.models.flow_net import FlowNet
 from video_super_resolution_tpu_torch.models.vsr import VSRModel
@@ -65,6 +69,20 @@ def eval_step(model: VSRModel, lr: torch.Tensor) -> torch.Tensor:
     """Forward, f32 prediction clipped to [0, 1]."""
     pred = model(lr.to(_device_of(model)))
     return pred.to(torch.float32).clamp(0.0, 1.0)
+
+
+def upscale_clip(model: VSRModel, frames: Union[np.ndarray, torch.Tensor],
+                 edge_mode: str = "replicate") -> np.ndarray:
+    """(T, h, w, 3) frames -> (T, h*scale, w*scale, 3) f32 in [0, 1]: frame
+    c is ``eval_step`` of the window ``sliding_window_indices(T, c, window,
+    edge_mode)`` around it, as the JAX package's ``upscale_clip``."""
+    frames = torch.as_tensor(frames)
+    t = frames.shape[0]
+    outs = []
+    for c in range(t):
+        idx = sliding_window_indices(t, c, model.cfg.window, edge_mode)
+        outs.append(eval_step(model, frames[idx][None])[0].cpu().numpy())
+    return np.stack(outs)
 
 
 def build_flow_net(cfg: Optional[VSRConfig] = None, device: Device = "cuda",

@@ -39,9 +39,9 @@ class ModelConfig:
     sr_blocks: int = 5                  # residual blocks in the SR trunk
     sr_wide_blocks: bool = True         # C -> 2C -> C blocks
     lrelu_slope: float = 0.1
-    # warp 64-ch neighbor features instead of frames+depth (not ported yet)
+    # warp 64-ch neighbor features (+ depth) instead of frames + depth
     warp_features: bool = False
-    # "espcn" (ported) or "two_stage" (not ported yet)
+    # "espcn" or "two_stage" (the reference-era head)
     sr_head_style: str = "espcn"
     # espcn-only extra LR conv width before the subpixel conv (0 = off)
     sr_espcn_mid: int = 0

@@ -61,38 +61,43 @@ class _Conv3x3(nn.Module):
     def conv(self, x: torch.Tensor, dtype: torch.dtype, slope: float,
              dilation: int = 1, res: Optional[torch.Tensor] = None,
              res_repeat: int = 1, cin: slice = slice(None),
-             with_bias: bool = True) -> torch.Tensor:
+             with_bias: bool = True, shuffle: bool = False) -> torch.Tensor:
         """``fused_conv3x3`` of x (cast to ``dtype``) with the weight's input
         channels ``cin`` and, if ``with_bias``, the bias, in the kernel's
-        layout; with grad enabled the parameters themselves ride along, so
-        that their gradients reach ``weight`` and ``bias``."""
+        layout (then ``pixel_shuffle(2)`` if ``shuffle``); with grad enabled
+        the parameters themselves ride along, so that their gradients reach
+        ``weight`` and ``bias``."""
         params = None
         if torch.is_grad_enabled():
             params = (self.weight[:, cin], self.bias if with_bias else None)
         return fused_conv3x3(x.to(dtype).contiguous(),
                              self.prepared(dtype, cin, with_bias), None,
-                             slope, dilation, res, res_repeat, params=params)
+                             slope, dilation, res, res_repeat, shuffle=shuffle,
+                             params=params)
 
 
 class ConvLReLU(_Conv3x3):
     """3x3 conv + bias + LeakyReLU. Stride 1 (any dilation) runs the fused
-    kernel; stride 2 pads symmetrically by 1 (torch ``Conv2d(padding=1)``
-    semantics), adds the f32 bias to the conv output, rounds to the compute
-    dtype and activates."""
+    kernel, followed by ``pixel_shuffle(2)`` if ``shuffle`` (the two_stage
+    SR head's upsample stages); stride 2 pads symmetrically by 1 (torch
+    ``Conv2d(padding=1)`` semantics), adds the f32 bias to the conv output,
+    rounds to the compute dtype and activates."""
 
     def __init__(self, cin: int, features: int, strides: int = 1,
                  dilation: int = 1, slope: float = 0.1,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, shuffle: bool = False):
         super().__init__(cin, features)
         self.strides = strides
         self.dilation = dilation
         self.slope = slope
         self.dtype = dtype
+        self.shuffle = shuffle
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         if self.strides == 1:
-            return self.conv(x, dt, self.slope, self.dilation)
+            return self.conv(x, dt, self.slope, self.dilation,
+                             shuffle=self.shuffle)
         out = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), None,
                        stride=self.strides, padding=self.dilation,
                        dilation=self.dilation).permute(0, 2, 3, 1)

@@ -7,8 +7,13 @@ replicate-padded to a multiple of 2^max(pyramid, depth levels) at the top
 and the output cropped back. Submodule names follow the JAX package's
 param tree, so that weights carry across by path.
 
-Ported: ``warp_features=False`` (warp frames + depth, then encode) and the
-``espcn`` head. ``warp_features=True`` and ``two_stage`` are not yet.
+Two alignment layouts (``ModelConfig.warp_features``): warp each
+neighbor's frame and depth (4 channels), then encode the aligned frames
+(the default); or encode every frame, then warp each neighbor's features
+and depth together (F + 1 channels, the reference-era layout). Each stage
+runs inside a ``torch.profiler.record_function`` range named after the
+JAX package's stages (``flow``, ``depth``, ``warp``, ``encode``,
+``fusion``, ``sr``), so a profile groups its device time by stage.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from typing import Dict, Union
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from video_super_resolution_tpu_torch.config import ModelConfig
 from video_super_resolution_tpu_torch.models.common import (
@@ -32,19 +38,10 @@ from video_super_resolution_tpu_torch.ops.resize import resize_bilinear
 from video_super_resolution_tpu_torch.ops.warp import backward_warp
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    if cfg.warp_features:
-        raise NotImplementedError("warp_features=True is not ported yet")
-    if cfg.sr_head_style != "espcn" or cfg.sr_espcn_mid:
-        raise NotImplementedError(
-            "only the espcn SR head without espcn_mid is ported")
-
-
 class VSRModel(nn.Module):
     def __init__(self, cfg: ModelConfig = ModelConfig(),
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         self.dtype = dtype
         slope = cfg.lrelu_slope
@@ -64,7 +61,8 @@ class VSRModel(nn.Module):
         self.sr_head = SRHead(f, features=cfg.sr_channels,
                               blocks=cfg.sr_blocks, scale=cfg.scale,
                               slope=slope, wide_blocks=cfg.sr_wide_blocks,
-                              dtype=dtype)
+                              style=cfg.sr_head_style,
+                              espcn_mid=cfg.sr_espcn_mid, dtype=dtype)
 
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
         return self.frame_encoder_1(self.frame_encoder_0(frames))
@@ -85,33 +83,56 @@ class VSRModel(nn.Module):
                                 ).reshape(b * n, h, w, 3)
 
         # flow of every neighbor, ref passed at its true batch (dedup form)
-        flows = self.flow_net(ref, nbrs_flat)                        # (B*N,H,W,2)
+        with record_function("flow"):
+            flows = self.flow_net(ref, nbrs_flat)                    # (B*N,H,W,2)
 
         # depth of all T frames, at 1/ddiv resolution
         frames_flat = window.reshape(b * t, h, w, 3)
         ddiv = cfg.depth_res_divisor or (2 if cfg.depth_at_half_res else 1)
-        if ddiv > 1:
-            d_low = self.depth_net(
-                resize_bilinear(frames_flat, h // ddiv, w // ddiv))
-            depths = resize_bilinear(d_low, h, w).reshape(b, t, h, w, 1)
-        else:
-            depths = self.depth_net(frames_flat).reshape(b, t, h, w, 1)
+        with record_function("depth"):
+            if ddiv > 1:
+                d_low = self.depth_net(
+                    resize_bilinear(frames_flat, h // ddiv, w // ddiv))
+                depths = resize_bilinear(d_low, h, w).reshape(b, t, h, w, 1)
+            else:
+                depths = self.depth_net(frames_flat).reshape(b, t, h, w, 1)
         ref_depth = depths[:, center]
         nbr_depths = torch.stack([depths[:, i] for i in nbr_idx], dim=1)
 
-        # warp frame + depth (4 channels), then encode the aligned frames
-        fd = torch.cat([nbrs_flat,
-                        nbr_depths.reshape(b * n, h, w, 1).to(nbrs_flat.dtype)],
-                       dim=-1)
-        warped = backward_warp(fd, flows.contiguous())
-        warped_frames = warped[..., :3]
-        warped_depths = warped[..., 3:].reshape(b, n, h, w, 1)
-        enc = self.encode(torch.cat([ref, warped_frames.to(ref.dtype)], dim=0))
-        ref_feat = enc[:b]
-        warped_feats = enc[b:].reshape(b, n, h, w, cfg.fusion_channels)
+        f = cfg.fusion_channels
+        if cfg.warp_features:
+            # encode every frame, then warp features + depth (F + 1 channels)
+            with record_function("encode"):
+                feats = self.encode(frames_flat).reshape(b, t, h, w, f)
+            ref_feat = feats[:, center]
+            nbr_feats = torch.stack([feats[:, i] for i in nbr_idx], dim=1)
+            fd = torch.cat([nbr_feats, nbr_depths.to(nbr_feats.dtype)],
+                           dim=-1).reshape(b * n, h, w, f + 1)
+            with record_function("warp"):
+                warped = backward_warp(fd, flows.contiguous())
+            warped = warped.reshape(b, n, h, w, f + 1)
+            warped_feats = warped[..., :f]
+            warped_depths = warped[..., f:]
+        else:
+            # warp frame + depth (4 channels), then encode the aligned frames
+            fd = torch.cat([nbrs_flat,
+                            nbr_depths.reshape(b * n, h, w, 1)
+                            .to(nbrs_flat.dtype)], dim=-1)
+            with record_function("warp"):
+                warped = backward_warp(fd, flows.contiguous())
+            warped_frames = warped[..., :3]
+            warped_depths = warped[..., 3:].reshape(b, n, h, w, 1)
+            with record_function("encode"):
+                enc = self.encode(torch.cat([ref, warped_frames.to(ref.dtype)],
+                                            dim=0))
+            ref_feat = enc[:b]
+            warped_feats = enc[b:].reshape(b, n, h, w, f)
 
-        fused = self.fusion(ref_feat, warped_feats, ref_depth, warped_depths)
-        hr = self.sr_head(crop_to(fused, h0, w0), crop_to(ref, h0, w0))
+        with record_function("fusion"):
+            fused = self.fusion(ref_feat, warped_feats, ref_depth,
+                                warped_depths)
+        with record_function("sr"):
+            hr = self.sr_head(crop_to(fused, h0, w0), crop_to(ref, h0, w0))
         if return_aux:
             return {
                 "hr": hr,

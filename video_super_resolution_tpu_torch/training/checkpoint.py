@@ -4,16 +4,24 @@ optimizer's state, the step and the config JSON, one file a step
 so a crash mid-save leaves the previous checkpoints intact. The newest
 ``keep`` are kept.
 
+Saves are asynchronous, as the JAX package's Orbax manager's by default
+(``enable_async_checkpointing``): ``save`` copies the state to host memory
+before it returns, so the caller may go on updating the parameters, and a
+writer thread does the write, the rename and the retention. ``wait`` joins
+the writer; a second ``save``, ``steps``, ``restore`` and ``close`` wait
+for the one before. An error in the writer is raised by the next of them,
+never dropped.
+
 The config is ``VSRConfig.to_json()``, field for field the JAX package's
-format, so either package reads it. Saves are synchronous (the JAX package
-saves asynchronously with Orbax).
+format, so either package reads it.
 """
 
 from __future__ import annotations
 
 import os
 import re
-from typing import List, Optional, Tuple
+import threading
+from typing import Any, List, Optional, Tuple
 
 import torch
 
@@ -23,16 +31,35 @@ from video_super_resolution_tpu_torch.training.state import TrainState
 _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
 
 
+def host_copy(obj: Any) -> Any:
+    """``obj`` with every tensor copied to host memory (a new tensor even
+    for one already on the CPU), through dicts, lists and tuples."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: host_copy(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(host_copy(v) for v in obj)
+    return obj
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 5):
         self.directory = os.path.abspath(directory)
         self.keep = keep
+        self._writer: Optional[threading.Thread] = None
+        self._error: Optional[Exception] = None
         os.makedirs(self.directory, exist_ok=True)
 
     def path(self, step: int) -> str:
         return os.path.join(self.directory, f"ckpt_{step}.pt")
 
     def steps(self) -> List[int]:
+        """The saved steps, the pending save's included (waits for it)."""
+        self.wait()
+        return self._on_disk()
+
+    def _on_disk(self) -> List[int]:
         return sorted(int(m.group(1)) for m in map(_NAME.match,
                                                    os.listdir(self.directory))
                       if m)
@@ -43,20 +70,45 @@ class CheckpointManager:
 
     def save(self, step: int, state: TrainState,
              config: Optional[VSRConfig] = None) -> None:
-        blob = {"step": step, "model": state.model.state_dict(),
-                "optimizer": state.optimizer.state_dict(),
+        """Copy the state to host memory; the writer thread writes it."""
+        self.wait()
+        blob = {"step": step,
+                "model": host_copy(state.model.state_dict()),
+                "optimizer": host_copy(state.optimizer.state_dict()),
                 "config": None if config is None else config.to_json()}
+        self._writer = threading.Thread(target=self._run, args=(step, blob),
+                                        name=f"ckpt-{step}", daemon=True)
+        self._writer.start()
+
+    def _run(self, step: int, blob: dict) -> None:
+        try:
+            self._write(step, blob)
+        except Exception as e:     # raised to the caller by wait()
+            self._error = e
+
+    def _write(self, step: int, blob: dict) -> None:
         tmp = self.path(step) + ".tmp"
         torch.save(blob, tmp)
         os.replace(tmp, self.path(step))
-        for old in self.steps()[:-self.keep] if self.keep > 0 else []:
+        for old in self._on_disk()[:-self.keep] if self.keep > 0 else []:
             os.remove(self.path(old))
+
+    def wait(self) -> None:
+        """Block until the pending save is written; raise its error if it
+        failed."""
+        if self._writer is not None:
+            self._writer.join()
+            self._writer = None
+        err, self._error = self._error, None
+        if err is not None:
+            raise RuntimeError("checkpoint write failed") from err
 
     def _load(self, step: Optional[int]):
         if step is None:
             step = self.latest_step()
         if step is None:
             return None, None
+        self.wait()
         return torch.load(self.path(step), map_location="cpu",
                           weights_only=True), step
 
@@ -80,8 +132,6 @@ class CheckpointManager:
             return None
         return VSRConfig.from_json(blob["config"])
 
-    def wait(self) -> None:
-        """Saves are synchronous: nothing to wait for."""
-
     def close(self) -> None:
-        """Nothing is held open between saves."""
+        """Wait for the pending save."""
+        self.wait()

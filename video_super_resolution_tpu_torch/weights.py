@@ -7,6 +7,11 @@ The port names its submodules after the flax modules (``flow_net``,
     ("flow_net", "FeaturePyramid_0", "ConvLReLU_3", "kernel")
         -> "flow_net.FeaturePyramid_0.ConvLReLU_3.weight"   (HWIO -> OIHW)
 
+The two_stage SR head keeps its upsample parameters as raw leaves of the
+head (``sr_head/upsample_{u}_kernel``, ``sr_head/upsample_{u}_bias``);
+they map to the port's ``sr_head.upsample_{u}`` conv module's ``weight``
+and ``bias``.
+
 Mapping is by name, never by order: flax sorts ``ConvLReLU_10`` before
 ``ConvLReLU_2``, so any zip over sorted leaves would mis-assign DepthNet's
 thirteen convs.
@@ -14,6 +19,7 @@ thirteen convs.
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Iterator, Mapping, Tuple, Union
 
 import numpy as np
@@ -31,11 +37,34 @@ def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
             yield prefix + (k,), v
 
 
-def _key(path: Tuple[str, ...]) -> str:
+# the two_stage head's raw leaves, e.g. ("sr_head", "upsample_0_kernel")
+_RAW_LEAF = re.compile(r"^(upsample_\d+)_(kernel|bias)$")
+_RAW_MODULE = re.compile(r"^upsample_\d+$")
+
+
+def _split(path: Tuple[str, ...]) -> Tuple[list, str]:
+    """(module path, "kernel" | "bias") of a flax leaf path."""
     *mods, leaf = path
+    raw = _RAW_LEAF.match(leaf)
+    if raw:
+        return mods + [raw.group(1)], raw.group(2)
     if leaf not in ("kernel", "bias"):
         raise ValueError(f"unexpected flax leaf {'/'.join(path)}")
+    return mods, leaf
+
+
+def _key(path: Tuple[str, ...]) -> str:
+    mods, leaf = _split(path)
     return ".".join(mods + ["weight" if leaf == "kernel" else "bias"])
+
+
+def flax_path(key: str) -> Tuple[str, ...]:
+    """The flax leaf path of a port state_dict key (``_key``'s inverse)."""
+    *mods, leaf = key.split(".")
+    leaf = "kernel" if leaf == "weight" else leaf
+    if mods and _RAW_MODULE.match(mods[-1]):
+        return tuple(mods[:-1]) + (f"{mods[-1]}_{leaf}",)
+    return tuple(mods) + (leaf,)
 
 
 def _expected_shapes(target: Union[ModelConfig, VSRConfig, torch.nn.Module]
@@ -65,7 +94,7 @@ def from_jax_params(params: Mapping[str, Any],
     for path, leaf in _leaves(params):
         key = _key(path)
         arr = np.asarray(leaf, dtype=np.float32)
-        if path[-1] == "kernel":
+        if _split(path)[1] == "kernel":
             if arr.ndim != 4:
                 raise ValueError(f"{'/'.join(path)}: kernel ndim {arr.ndim}")
             arr = arr.transpose(3, 2, 0, 1)                 # HWIO -> OIHW
@@ -89,11 +118,10 @@ def to_jax_params(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     HWIO kernels)."""
     tree: Dict[str, Any] = {}
     for key, t in state_dict.items():
-        *mods, leaf = key.split(".")
+        *mods, leaf = flax_path(key)
         arr = t.detach().to("cpu", torch.float32).numpy()
-        if leaf == "weight":
+        if key.endswith(".weight"):
             arr = arr.transpose(2, 3, 1, 0)                 # OIHW -> HWIO
-            leaf = "kernel"
         node = tree
         for m in mods:
             node = node.setdefault(m, {})
