@@ -86,13 +86,31 @@ After phase 6:
   saved state_dict;
 - async checkpoint: the time ``save`` blocks against ``wait()``; the
   parameters are changed right after ``save`` and the restore is still
-  bit-equal to the state at ``save``.
+  bit-equal to the state at ``save``;
+- parallel: the parallel modes at full width (the ``parallel_modes``
+  case, which ``parallel/launch.py`` runs in each rank: temporal and
+  spatial streaming of a 4-frame 540x960 clip, the TP forward, the dp and
+  the sp train step at ``VSRConfig()``), f32 with TF32 off, every rank
+  against the unsharded model on the card (forwards rtol/atol 1e-4, loss
+  and grad_norm rtol 1e-5), and bf16 times beside the unsharded forms;
+  first at world size 1 on NCCL in this process, then as 2 gloo
+  processes that share cuda:0 (NCCL takes one GPU a rank); every kernel
+  must launch in every mode on every rank (counts set to 0 before each
+  mode, read after); the route of each collective, and a probe of which
+  collectives gloo carries for CUDA tensors, which must match the routes
+  ``runtime/mesh.py`` takes; bf16
+  ``stream_upscale`` against ``upscale_clip`` on an 8-frame clip; the
+  strips' rows; the TP trunk's conv shapes at n = 2 and 4, held against
+  the plain version and timed.
 
 The last two lines are the ``{"kernels": [...]}`` summary (per-forward
 totals over the serving forward's specs; ``launches`` counts the serving
 forward, ``train_step_launches`` one train step, ``ref_era_launches`` and
 ``espcn_mid_launches`` the two option forwards, ``new_specs`` the option
-forwards' new argument specs with their times) and
+forwards' new argument specs with their times,
+``parallel_stream_launches`` the world-size-1 8-frame ``stream_upscale``,
+``parallel_mode_launches`` each mode at world size 1 and on each of the 2
+gloo ranks, ``tp_specs`` the TP conv shapes) and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1352,6 +1370,394 @@ def phase_async_checkpoint(state, cfg, tmp):
         raise AssertionError("async checkpoint restore is not the state at save")
 
 
+# ------------------------------------------------------------ parallel modes
+
+PAR_CLIP = 8            # frames of the world-size-1 stream_upscale timing
+PAR_REPS = 3            # bf16 calls timed a mode
+MODES = ("temporal", "space", "tp", "dp", "sp")
+
+
+def host_ms(fn, reps):
+    """Host-clock ms a call of fn() (its device work synchronised), after
+    one warm-up call; None when reps is 0."""
+    if not reps:
+        return None
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def counted(kernels, fn):
+    """fn() and the kernels it launched: every count set to 0 just before,
+    read just after."""
+    torch.cuda.synchronize()
+    kernels.reset()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, kernels.counts()
+
+
+def close(got, want, rtol, atol):
+    got = torch.as_tensor(got).float().cpu()
+    want = torch.as_tensor(want).float().cpu()
+    return {"err": float((got - want).abs().max()),
+            "ok": bool(torch.allclose(got, want, rtol=rtol, atol=atol))}
+
+
+def parallel_modes(inputs, device):
+    """A case of ``parallel/launch.py`` (run in this process at world size
+    1, and by each rank of a job as ``"chip_smoke:parallel_modes"``):
+    every mode on meshes of the world's size, each on every rank against
+    the unsharded model (f32, TF32 off: "config", "train_config"), with
+    the kernels each launched on this rank, and bf16 times ("reps" calls,
+    host clock) of the sharded form, and on rank 0 of the unsharded one:
+
+    - temporal: ``stream_upscale`` of "frames" on time = world, against
+      ``upscale_clip`` (the stream clipped to [0, 1] as it is);
+    - space: the same on space = world (time 1 x space world);
+    - tp: ``make_tp_forward`` of "window" on model = world, against the
+      forward; "tp_allreduce_ms": one all-reduce of a block's partial sum
+      ("allreduce_shape", f32) over the model group;
+    - dp: one train step on "batch" on data = world (each rank its slice),
+      against one step on the whole batch (loss, grad_norm at rtol 1e-5);
+    - sp: the same on space = world.
+
+    Forwards at rtol = atol = 1e-4."""
+    import torch.distributed as dist
+
+    from video_super_resolution_tpu_torch import api
+    from video_super_resolution_tpu_torch.config import MeshConfig, VSRConfig
+    from video_super_resolution_tpu_torch.parallel.launch import local_batch
+    from video_super_resolution_tpu_torch.parallel.tensor import make_tp_forward
+    from video_super_resolution_tpu_torch.runtime.mesh import (
+        AXIS_MODEL,
+        all_reduce_sum_,
+        build_mesh,
+    )
+    from video_super_resolution_tpu_torch.training.state import create_train_state
+    from video_super_resolution_tpu_torch.training.step import make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels = Kernels()
+    world, rank0 = dist.get_world_size(), dist.get_rank() == 0
+    reps = inputs.get("reps", 0)
+    cfg = VSRConfig.from_json(inputs["config"])
+    tcfg = VSRConfig.from_json(inputs["train_config"])
+    bf16 = lambda c: c.replace(train=dataclasses.replace(  # noqa: E731
+        c.train, compute_dtype="bfloat16"))
+    metrics = lambda m: {k: float(v) for k, v in m.items()}  # noqa: E731
+    frames, window = inputs["frames"], inputs["window"].to(device)
+    model, fast = (api.build_model(c, device, 0) for c in (cfg, bf16(cfg)))
+    out, transport = {}, collections.Counter()
+    clip = api.upscale_clip(model, frames)
+    for name, axis in (("temporal", "time"), ("space", "space")):
+        mesh = build_mesh(MeshConfig(**{axis: world}), device)
+        got, n = counted(kernels, lambda: api.stream_upscale(model, frames,
+                                                             cfg, mesh))
+        out[name] = {"launches": n, **close(got.clip(0, 1), clip, 1e-4, 1e-4),
+                     "ms": host_ms(lambda: api.stream_upscale(
+                         fast, frames, bf16(cfg), mesh), reps)}
+        if rank0:
+            out[name]["plain_ms"] = host_ms(
+                lambda: api.upscale_clip(fast, frames), reps)
+        transport.update(mesh.transport)
+
+    mesh = build_mesh(MeshConfig(model=world), device)
+    got, n = counted(kernels, lambda: make_tp_forward(model, mesh)(window))
+    tp = make_tp_forward(fast, mesh)
+    part = torch.randn(inputs["allreduce_shape"], device=device)
+    out["tp"] = {"launches": n,
+                 **close(got, api.upscale_window(model, window), 1e-4, 1e-4),
+                 "ms": host_ms(lambda: tp(window), reps),
+                 "tp_allreduce_ms": host_ms(
+                     lambda: all_reduce_sum_(part, mesh, AXIS_MODEL), reps)}
+    if rank0:
+        out["tp"]["plain_ms"] = host_ms(lambda: api.upscale_window(fast, window),
+                                        reps)
+    transport.update(mesh.transport)
+
+    eps = tcfg.train.charbonnier_eps
+    for name, mcfg in (("dp", MeshConfig(data=world)),
+                       ("sp", MeshConfig(space=world))):
+        mesh = build_mesh(mcfg, device)
+        state = create_train_state(tcfg, device, 0)
+        step = make_train_step(eps, mesh)
+        (_, m), n = counted(kernels, lambda: step(
+            state, local_batch(inputs["batch"], mesh)))
+        _, want = make_train_step(eps)(create_train_state(tcfg, device, 0),
+                                       inputs["batch"])
+        m, want = metrics(m), metrics(want)
+        fast_state = create_train_state(bf16(tcfg), device, 0)
+        out[name] = {"launches": n, **m, "want": want, "ok": all(
+            abs(m[k] - want[k]) <= 1e-5 * abs(want[k])
+            for k in ("loss", "grad_norm")), "ms": host_ms(lambda: step(
+                fast_state, local_batch(inputs["batch"], mesh)), reps)}
+        if rank0:
+            plain = make_train_step(eps)
+            out[name]["plain_ms"] = host_ms(
+                lambda: plain(fast_state, inputs["batch"]), reps)
+        transport.update(mesh.transport)
+    out["transport"] = [[*k, v] for k, v in sorted(transport.items())]
+    return out
+
+
+def parallel_inputs():
+    """The ``parallel_modes`` case's inputs at full width: serving_config()
+    f32 (4 frames and one window of 540x960) and VSRConfig() f32 (warmup
+    0, a batch of 4 windows, LR crop 64), from seeded generators."""
+    from video_super_resolution_tpu_torch import serving_config
+
+    g = torch.Generator().manual_seed(11)
+    h, w = WINDOW[2:4]
+    return {"cases": ["chip_smoke:parallel_modes"],
+            "config": serving_config().replace(train=dataclasses.replace(
+                serving_config().train, compute_dtype="float32")).to_json(),
+            "train_config": train_cfg(compute_dtype="float32",
+                                      warmup_steps=0).to_json(),
+            "frames": torch.rand((4, h, w, 3), generator=g),
+            "window": torch.rand(WINDOW, generator=g),
+            "batch": {"lr": torch.rand((TRAIN_BATCH, 3, TRAIN_CROP, TRAIN_CROP,
+                                        3), generator=g),
+                      "hr": torch.rand((TRAIN_BATCH, 4 * TRAIN_CROP,
+                                        4 * TRAIN_CROP, 3), generator=g)},
+            "reps": PAR_REPS, "allreduce_shape": [1, h, w, 64]}
+
+
+def report_modes(tag, results):
+    """Log and check the ``parallel_modes`` results of every rank: in each
+    mode every rank launched all three kernels and its comparison with the
+    unsharded model holds."""
+    r0 = results[0]
+    for mode in MODES:
+        ranks = [r[mode] for r in results]
+        line = (f"[parallel] {tag} {mode}: launches "
+                f"{[r['launches'] for r in ranks]}; ")
+        if mode in ("dp", "sp"):
+            line += "; ".join(
+                f"rank {i} loss {r['loss']:.7f} / unsharded "
+                f"{r['want']['loss']:.7f}, grad_norm {r['grad_norm']:.7f} / "
+                f"{r['want']['grad_norm']:.7f}" for i, r in enumerate(ranks))
+            line += " (rtol 1e-5)"
+        else:
+            errs = ", ".join(f"{r['err']:.3e}" for r in ranks)
+            line += f"max|diff| vs unsharded by rank [{errs}] (rtol/atol 1e-4)"
+        line += (f"; bf16 {[round(r['ms'], 3) for r in ranks]} ms a call by "
+                 f"rank vs unsharded {r0[mode]['plain_ms']:.3f} (host clock, "
+                 f"{PAR_REPS} calls)")
+        if mode == "tp":
+            line += (f"; one block's partial-sum all-reduce (1, 540, 960, 64) "
+                     f"f32 {r0[mode]['tp_allreduce_ms']:.3f} ms")
+        log(line)
+        for i, r in enumerate(ranks):
+            if not r["ok"]:
+                raise AssertionError(f"[parallel] {tag} {mode}: rank {i} "
+                                     f"differs from the unsharded model")
+            if min(r["launches"].values()) <= 0:
+                raise AssertionError(f"[parallel] {tag} {mode}: rank {i} did "
+                                     f"not launch a kernel: {r['launches']}")
+    log(f"[parallel] {tag} collectives (op, backend, transport, calls) on "
+        f"rank 0: {r0['transport']}")
+
+
+def stream_vs_clip(kernels, mesh):
+    """bf16 serving, a PAR_CLIP-frame 540x960 clip: ms/frame of
+    ``api.stream_upscale`` (its windows in one batched forward) against
+    ``api.upscale_clip`` (a forward a frame), host clock with the copies to
+    the host, in turns clip, stream, stream, clip; the stream's launches."""
+    from video_super_resolution_tpu_torch import api, serving_config
+
+    cfg = serving_config()
+    model = api.build_model(cfg, "cuda", seed=0)
+    clip = torch.rand((PAR_CLIP, *WINDOW[2:4], 3),
+                      generator=torch.Generator().manual_seed(12))
+    runs = {"clip": lambda: api.upscale_clip(model, clip),
+            "stream": lambda: api.stream_upscale(model, clip, cfg, mesh)}
+    for fn in runs.values():
+        fn()
+    times = collections.defaultdict(list)
+    for name in ("clip", "stream", "stream", "clip"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[name]()
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) / PAR_CLIP * 1e3)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset()
+    runs["stream"]()
+    torch.cuda.synchronize()
+    counts = kernels.counts()
+    log(f"[parallel] world 1 (NCCL), bf16 {PAR_CLIP}-frame 540x960 clip: "
+        f"stream_upscale {times['stream']} ms/frame, upscale_clip "
+        f"{times['clip']} ms/frame (host clock, copies to the host "
+        f"included); stream peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB; launches "
+        f"{counts}")
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"stream_upscale did not launch every kernel: "
+                             f"{counts}")
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def tp_conv_specs(kernels):
+    """The conv shapes the TP trunk brings at n = 2 and 4 model ranks
+    (C = 64): conv1 64 -> 128/n with the LReLU, conv2 128/n -> 64 at slope
+    1 with no residual (its bias added after the all-reduce), bf16 at
+    540x960, each held against the plain version and timed
+    (check_spec)."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    xs = (1, *WINDOW[2:4])
+    out = []
+    for n in (2, 4):
+        for name, cin, cout, slope in (("conv1", 64, 128 // n, 0.1),
+                                       ("conv2", 128 // n, 64, 1.0)):
+            spec = (xs + (cin,), torch.bfloat16, cout, 1, slope, None, 1, False)
+            r = check_spec(kernels, "conv3x3", spec, 5, gen)
+            out.append({"n": n, "conv": name, "cin": cin, "cout": cout,
+                        **{k: r[k] for k in ("err", "ms", "plain_ms",
+                                             "library_ms", "bound_ms",
+                                             "bound_by")}})
+            log(f"[parallel] TP {name} at n = {n}: {json.dumps(out[-1])}")
+    return out
+
+
+GLOO_PROBE_OPS = ("all_reduce", "all_gather", "exchange")
+
+
+def gloo_probe(inputs, device):
+    """A case of ``parallel/launch.py`` (``"chip_smoke:gloo_probe"``): the
+    collective "op" between the job's 2 ranks, issued straight to the
+    process group on CUDA tensors of ``device``, with no host copies;
+    whether it delivered the right values. A collective gloo cannot carry
+    on the device aborts the rank's process instead."""
+    import torch.distributed as dist
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    x = torch.full((4, 1024), float(rank + 1), device=device)
+    op = inputs["op"]
+    if op == "all_reduce":
+        dist.all_reduce(x)
+        ok = bool((x == world * (world + 1) / 2).all())
+    elif op == "all_gather":
+        got = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(got, x)
+        ok = all(bool((g == i + 1).all()) for i, g in enumerate(got))
+    else:       # runtime.mesh.exchange_neighbors' send and receive
+        peer, got = 1 - rank, torch.empty_like(x)
+        for work in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, peer),
+                                            dist.P2POp(dist.irecv, got, peer)]):
+            work.wait()
+        ok = bool((got == peer + 1).all())
+    torch.cuda.synchronize()
+    return {"ok": ok}
+
+
+def probe_gloo(tmp):
+    """Which collectives gloo carries for CUDA tensors itself: each of
+    GLOO_PROBE_OPS in its own 2-rank gloo job on cuda:0 (an abort ends only
+    that job). Those it does not carry must be exactly the ones
+    ``runtime/mesh.py`` hands gloo host copies of (``_GLOO_HOST_STAGED``),
+    else the run fails, after every op is probed."""
+    from video_super_resolution_tpu_torch.parallel import launch
+    from video_super_resolution_tpu_torch.runtime import mesh as rm
+
+    wrong = []
+    for op in GLOO_PROBE_OPS:
+        t0 = time.perf_counter()
+        try:
+            res = launch.spawn({"cases": ["chip_smoke:gloo_probe"], "op": op},
+                               2, os.path.join(tmp, f"probe_{op}"),
+                               device="cuda:0", backend="gloo", timeout=90)
+            carried = all(r["chip_smoke:gloo_probe"]["ok"] for r in res)
+            how = "delivered" if carried else "wrong values"
+        except RuntimeError as e:       # the job's failure is the finding
+            carried = False
+            lines = [ln for ln in str(e).splitlines() if ln.strip()]
+            how = "failed: " + " | ".join(
+                [lines[0]] + [ln.strip() for ln in lines if "rror" in ln][-2:])
+        staged = op in rm._GLOO_HOST_STAGED
+        log(f"[parallel] gloo probe, {op} of CUDA tensors on cuda:0 "
+            f"({time.perf_counter() - t0:.1f} s): {how}; runtime/mesh.py "
+            f"{'stages it through host copies' if staged else 'hands gloo the CUDA tensors'}")
+        if carried == staged:
+            wrong.append(op)
+    if wrong:
+        raise AssertionError(f"runtime/mesh.py routes {wrong} of CUDA tensors "
+                             f"under gloo against what the probe found")
+
+
+def phase_parallel(kernels, tmp):
+    """The parallel modes at full width, each against the unsharded model
+    on the card and with its kernel launches counted on every rank:
+
+    - world size 1, NCCL, in this process (``initialize_distributed``):
+      the ``parallel_modes`` case (temporal and spatial streaming of 4
+      frames, the TP forward, the dp and the sp train step, f32 with TF32
+      off against the unsharded forms, bf16 times beside them), then bf16
+      ``stream_upscale`` against ``upscale_clip`` on an 8-frame clip;
+    - the gloo probe (``probe_gloo``): which collectives gloo carries for
+      CUDA tensors, against ``runtime/mesh.py``'s routes;
+    - 2 processes, gloo, both ranks on cuda:0 (NCCL takes one GPU a rank):
+      the same case at world size 2; the compute stays on the card, the
+      collectives go as ``runtime/mesh.py`` routes them (printed);
+    - the TP conv shapes at n = 2 and 4, held and timed.
+    Returns the launches of the world-1 stream and of each mode."""
+    import torch.distributed as dist
+
+    from video_super_resolution_tpu_torch.config import MeshConfig
+    from video_super_resolution_tpu_torch.parallel import launch
+    from video_super_resolution_tpu_torch.parallel.spatial import (
+        halo_rows,
+        strip_rows,
+    )
+    from video_super_resolution_tpu_torch.runtime import mesh as rm
+
+    t_phase = time.perf_counter()
+    inputs = parallel_inputs()
+    rm.initialize_distributed(f"localhost:{launch.free_port()}", 1, 0,
+                              device="cuda:0")
+    try:
+        log(f"[parallel] world 1: process group backend "
+            f"{dist.get_backend()}")
+        one = parallel_modes(inputs, "cuda:0")
+        report_modes("world 1 (NCCL)", [one])
+        stream = stream_vs_clip(kernels, rm.build_mesh(MeshConfig(), "cuda:0"))
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    probe_gloo(tmp)
+    t0 = time.perf_counter()
+    two = [r["chip_smoke:parallel_modes"] for r in launch.spawn(
+        inputs, 2, os.path.join(tmp, "parallel"), device="cuda:0",
+        backend="gloo", timeout=600)]
+    log(f"[parallel] 2 ranks (gloo) on cuda:0: job {time.perf_counter() - t0:.1f} "
+        f"s (start, kernel load, every mode); correctness runs: two ranks "
+        f"share one card, so their times say nothing about scaling")
+    report_modes("2 ranks (gloo, one card)", two)
+
+    from video_super_resolution_tpu_torch import api, serving_config
+
+    halo = halo_rows(api.build_model(serving_config(), "cpu"))
+    plan = strip_rows(WINDOW[2], 2, halo, 544)
+    log(f"[parallel] spatial strips at space 2: halo {halo} LR rows; "
+        + "; ".join(f"rank {i} owns rows {s.r0}-{s.r1} and computes "
+                    f"{s.lo}-{s.hi} ({(s.hi - s.lo) / (s.r1 - s.r0):.4f}x "
+                    f"its rows in encode and fusion)"
+                    for i, s in enumerate(plan)))
+    specs = tp_conv_specs(kernels)
+    log(f"[parallel] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"stream": stream,
+            "modes": {m: [one[m]["launches"]] + [r[m]["launches"] for r in two]
+                      for m in MODES}, "tp_specs": specs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1384,6 +1790,9 @@ def main() -> int:
         if have_pil:
             phase_clip_cli(tmp, train["sps"], native_ok)
         phase_async_checkpoint(train["state"], train["cfg"], tmp)
+        del train["state"]
+        torch.cuda.empty_cache()
+        par = phase_parallel(kernels, tmp)
     for row in rows:
         name = row["name"]
         row["train_step_launches"] = train["launches"][name]
@@ -1391,6 +1800,11 @@ def main() -> int:
         row["espcn_mid_launches"] = mid_counts[name]
         row["new_specs"] = [sp for sp in ref_specs + mid_specs
                             if sp["kernel"] == name]
+        row["parallel_stream_launches"] = par["stream"][name]
+        row["parallel_mode_launches"] = {
+            m: [c[name] for c in counts] for m, counts in par["modes"].items()}
+        if name == "conv3x3":
+            row["tp_specs"] = par["tp_specs"]
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

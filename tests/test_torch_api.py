@@ -86,6 +86,51 @@ def test_estimate_and_align_on_cpu():
     assert bool(torch.isfinite(flows).all() and torch.isfinite(warped).all())
 
 
+def _smooth_frames(h, w, shifts):
+    """A smooth pattern sampled at a (dx, dy) shift per frame: small,
+    smooth motion, so that the flows stay inside the tiled warp's budget
+    (JAX's FlowNet warps with ``warp_impl="tiled"``)."""
+    y = np.arange(h, dtype=np.float32)[:, None, None]
+    x = np.arange(w, dtype=np.float32)[None, :, None]
+    c = np.arange(3, dtype=np.float32)[None, None, :]
+    return np.stack([0.5 + 0.4 * np.sin(0.3 * (x + dx) + 0.7 * c)
+                     * np.cos(0.2 * (y + dy)) for dx, dy in shifts]
+                    ).astype(np.float32)
+
+
+@pytest.mark.parametrize("finest", [1, 0])
+def test_estimate_and_align_matches_jax(finest):
+    """``api.estimate_and_align`` against the JAX package's, with JAX's
+    ``init_flow_params`` loaded strictly: the standalone flow net is built
+    at finest level 1 whatever ``flow_finest_level`` says, as JAX builds
+    it. Flow-net tolerance (rtol 2e-3, atol 2e-4); 32x48, below 2^17
+    pixels."""
+    from video_super_resolution_tpu import api as japi
+    from video_super_resolution_tpu.config import ModelConfig as JModelConfig
+    from video_super_resolution_tpu.config import VSRConfig as JVSRConfig
+
+    from video_super_resolution_tpu_torch.config import ModelConfig
+
+    small = dict(pyramid_channels=(8, 16), flow_estimator_channels=(16, 16),
+                 context_channels=(16, 16), flow_finest_level=finest)
+    jcfg = JVSRConfig(model=JModelConfig(**small))
+    params = jax.tree.map(np.asarray, japi.init_flow_params(jcfg, seed=0))
+    net = api.build_flow_net(VSRConfig(model=ModelConfig(**small)), "cpu")
+    net.load_state_dict(from_jax_params(params, net), strict=True)
+
+    frames = _smooth_frames(32, 48, [(0.0, 0.0), (0.6, -0.4), (-0.5, 0.3)])
+    ref, nbrs = frames[None, 0], frames[None, 1:]
+    want_f, want_w = japi.estimate_and_align(params, jnp.asarray(ref),
+                                             jnp.asarray(nbrs), jcfg)
+    got_f, got_w = api.estimate_and_align(net, torch.from_numpy(ref),
+                                          torch.from_numpy(nbrs))
+    assert got_f.shape == (1, 2, 32, 48, 2)
+    np.testing.assert_allclose(got_f.numpy(), np.asarray(want_f),
+                               rtol=2e-3, atol=2e-4)
+    np.testing.assert_allclose(got_w.numpy(), np.asarray(want_w),
+                               rtol=2e-3, atol=2e-4)
+
+
 # ---------------------------------------------------------------- weights
 
 @pytest.fixture(scope="module")

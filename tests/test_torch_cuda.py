@@ -195,6 +195,40 @@ def test_conv3x3_kernel_shuffled_upsample(gen, dtype, b, h, w):
     close(out, pixel_shuffle(conv3x3_plain(x, wt, bias, 0.1), 2), dtype)
 
 
+# the tensor-parallel SR trunk (parallel/tensor.py) at n model ranks, C = 64:
+# conv1 64 -> 128/n with the LReLU, conv2 128/n -> 64 at slope 1 with no
+# bias and no residual; the partial sums of the n ranks, plus the bias and
+# the skip added once, are the unsharded ResBlock (serving rows cut to 34)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [2, 4])
+def test_conv3x3_kernel_tp_trunk_shapes(gen, dtype, n):
+    from video_super_resolution_tpu_torch.models.common import ResBlock
+
+    x = rn(gen, (1, 34, 960, 64), dtype)
+    block = ResBlock(64, dtype=dtype, wide=True).cuda()
+    with torch.no_grad():
+        for p in block.parameters():
+            p.copy_(rn(gen, p.shape) / (24.0 if p.ndim == 4 else 10.0))
+        c1, c2 = block.ConvLReLU_0, block.Conv_0
+        k = 128 // n
+        total = torch.zeros((1, 34, 960, 64), device="cuda")
+        for m in range(n):
+            sl = slice(m * k, (m + 1) * k)
+            w1, b1, w2 = c1.weight[sl], c1.bias[sl], c2.weight[:, sl]
+            before = fused_conv3x3.launches
+            h = fused_conv3x3(x, prepare_conv3x3_weight(w1, b1, dtype))
+            part = fused_conv3x3(h, prepare_conv3x3_weight(
+                w2, torch.zeros(64, device="cuda"), dtype), slope=1.0)
+            assert fused_conv3x3.launches == before + 2
+            close(h, conv3x3_plain(x, w1, b1), dtype)
+            close(part, conv3x3_plain(h, w2, torch.zeros(64, device="cuda"),
+                                      1.0), dtype)
+            total += part.float()
+        got = (total + c2.bias + x.float()).to(dtype)
+        close(got, block(x), dtype)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("mode", ["zeros", "border"])

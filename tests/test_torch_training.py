@@ -238,8 +238,12 @@ def test_compact_batch_decode():
 
 
 def test_parallel_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        make_train_step(mesh=MeshConfig(data=2))
+    """The parallel modes are ported now (tests/test_torch_parallel.py):
+    a data 2 mesh builds its step; without a process group to run it on,
+    the first step raises and says what is missing."""
+    step = make_train_step(mesh=MeshConfig(data=2))
+    with pytest.raises(ValueError, match="process group"):
+        step(create_train_state(tiny_cfg(), "cpu"), batch(2))
 
 
 def test_prepared_weights_rebuilt_once_per_step(monkeypatch):

@@ -8,6 +8,8 @@
   a frame through ``eval_step``.
 - ``estimate_and_align``: flow of each neighbor onto the reference and the
   warped neighbors.
+- ``stream_upscale``: a clip through the time (and space) sharded
+  streaming program over a mesh (``parallel/streaming.py``).
 
 They run on the CUDA device unless the caller passes ``device="cpu"``;
 without a GPU a CUDA request raises instead of running on the CPU.
@@ -87,15 +89,19 @@ def upscale_clip(model: VSRModel, frames: Union[np.ndarray, torch.Tensor],
 
 def build_flow_net(cfg: Optional[VSRConfig] = None, device: Device = "cuda",
                    seed: int = 0) -> FlowNet:
-    """A standalone f32 FlowNet (for ``estimate_and_align``)."""
+    """A standalone f32 FlowNet (for ``estimate_and_align``), built as the
+    JAX package's ``estimate_and_align`` and ``init_flow_params`` build it
+    (``video_super_resolution_tpu/api.py:57-64,79-85``): they pass no
+    ``finest_level``, so it is FlowNet's default 1 whatever
+    ``cfg.model.flow_finest_level`` says, and their flow parameters load
+    here."""
     dev = resolve_device(device)
     cfg = cfg or VSRConfig()
     m = cfg.model
     net = FlowNet(pyramid_channels=m.pyramid_channels,
                   estimator_channels=m.flow_estimator_channels,
                   context_channels=m.context_channels,
-                  max_displacement=m.max_displacement, slope=m.lrelu_slope,
-                  finest_level=m.flow_finest_level)
+                  max_displacement=m.max_displacement, slope=m.lrelu_slope)
     init_params(net, torch.Generator().manual_seed(seed))
     return net.to(dev).eval()
 
@@ -121,3 +127,24 @@ def estimate_and_align(flow_net: FlowNet, ref: torch.Tensor,
     flows = flows.reshape(b, n, h, w, 2)[:, :, :h0, :w0]
     warped = warped.reshape(b, n, h, w, 3)[:, :, :h0, :w0]
     return flows, warped
+
+
+def stream_upscale(model: VSRModel, frames: Union[np.ndarray, torch.Tensor],
+                   cfg: VSRConfig, mesh, window_batch: Optional[int] = None
+                   ) -> np.ndarray:
+    """(T, h, w, 3) frames -> (T, h*scale, w*scale, 3) on every rank of
+    ``mesh`` (a ``runtime.mesh.Mesh``): timeline-sharded streaming
+    inference, each time rank on its T / time frames, the model's
+    unclipped f32 output as the JAX package's ``stream_upscale``."""
+    from video_super_resolution_tpu_torch.parallel.streaming import (
+        make_streaming_program,
+        stream_clip,
+    )
+
+    t, h, w, _ = frames.shape
+    time_size = mesh.shape.get("time", 1)
+    if t % time_size:
+        raise ValueError(f"frames {t} not divisible by time axis {time_size}")
+    program = make_streaming_program(cfg, mesh, (h, w), t // time_size,
+                                     window_batch)
+    return stream_clip(program, model, frames, mesh)

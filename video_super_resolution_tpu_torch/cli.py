@@ -8,7 +8,18 @@ arguments and dotted config overrides, plus ``--device``:
 
 Dotted overrides: --set model.window=5 train.lr=2e-4. ``--device`` is
 ``cuda`` unless given (``--device cpu`` runs on the CPU); without a GPU a
-CUDA run raises. The config JSON is the JAX package's format; checkpoints
+CUDA run raises.
+
+Data-parallel training, one process a rank under torchrun (or any launcher
+that sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
+``MASTER_PORT``):
+
+  torchrun --nproc-per-node 2 -m video_super_resolution_tpu_torch.cli train \
+      --hr-root ... --ckpt-dir ... --set mesh.data=2
+
+With ``mesh`` of more than one device, ``train`` joins the process group
+(``runtime.mesh.initialize_distributed``) on ``cuda:{LOCAL_RANK}`` (NCCL,
+one GPU a rank), or on the CPU with gloo for ``--device cpu``. The config JSON is the JAX package's format; checkpoints
 are the port's own (``training/checkpoint.py``), not Orbax's.
 """
 
@@ -106,8 +117,24 @@ def cmd_train(args):
             hr_root=args.eval_hr_root, lr_root=args.eval_lr_root,
             window=cfg.model.window, scale=cfg.model.scale, augment=False,
             edge_mode=cfg.data.edge_mode)
-    out = train(cfg, train_ds, eval_ds, max_steps=args.steps,
-                eval_every=args.eval_every, device=args.device)
+    device = args.device
+    joined = cfg.mesh.num_devices > 1
+    if joined:
+        import torch.distributed as dist
+
+        from video_super_resolution_tpu_torch.runtime.mesh import (
+            initialize_distributed,
+        )
+
+        if device == "cuda":
+            device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
+        initialize_distributed(device=device)
+    try:
+        out = train(cfg, train_ds, eval_ds, max_steps=args.steps,
+                    eval_every=args.eval_every, device=device)
+    finally:
+        if joined:
+            dist.destroy_process_group()
     if out["eval"]:
         print(json.dumps(out["eval"], indent=2))
 

@@ -4,8 +4,7 @@ The port's own copy of the JAX package's config tree (model topology, data,
 training, mesh), kept field-for-field identical so that a config serialized
 by either package loads in the other. The serving forward reads
 ``ModelConfig`` and the compute dtype of ``TrainConfig``; training reads
-the rest (``MeshConfig`` only to refuse a parallel mesh, which is not
-ported yet).
+the rest, and the parallel modes read ``MeshConfig`` (``runtime/mesh.py``).
 """
 
 from __future__ import annotations

@@ -14,11 +14,15 @@ and depth together (F + 1 channels, the reference-era layout). Each stage
 runs inside a ``torch.profiler.record_function`` range named after the
 JAX package's stages (``flow``, ``depth``, ``warp``, ``encode``,
 ``fusion``, ``sr``), so a profile groups its device time by stage.
+
+The forward is ``align`` (the stages up to the warp, on the whole frame)
+then ``reconstruct`` (the stages after it), which can also run on an H
+strip of rows: the spatial sharding of ``parallel/spatial.py``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -69,6 +73,23 @@ class VSRModel(nn.Module):
 
     def forward(self, window: torch.Tensor, return_aux: bool = False
                 ) -> Union[torch.Tensor, Dict[str, torch.Tensor]]:
+        a = self.align(window)
+        hr = self.reconstruct(a)
+        if return_aux:
+            b, n, h, w = a["warped_depths"].shape[:4]
+            h0, w0 = a["hw"]
+            return {
+                "hr": hr,
+                "flows": a["flows"].reshape(b, n, h, w, 2)[:, :, :h0, :w0],
+                "depth": a["ref_depth"][:, :h0, :w0],
+            }
+        return hr
+
+    def align(self, window: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The stages up to and including the warp, on the whole padded
+        frame: flow, depth, the warp (and, with ``warp_features``, the
+        encoder before it). Returns what ``reconstruct`` reads; "hw" is the
+        frame's size before padding."""
         cfg = self.cfg
         b, t, h0, w0, _ = window.shape
         center = t // 2
@@ -100,6 +121,8 @@ class VSRModel(nn.Module):
         nbr_depths = torch.stack([depths[:, i] for i in nbr_idx], dim=1)
 
         f = cfg.fusion_channels
+        out = {"ref": ref, "ref_depth": ref_depth, "flows": flows,
+               "hw": (h0, w0)}
         if cfg.warp_features:
             # encode every frame, then warp features + depth (F + 1 channels)
             with record_function("encode"):
@@ -111,32 +134,48 @@ class VSRModel(nn.Module):
             with record_function("warp"):
                 warped = backward_warp(fd, flows.contiguous())
             warped = warped.reshape(b, n, h, w, f + 1)
-            warped_feats = warped[..., :f]
-            warped_depths = warped[..., f:]
+            out.update(ref_feat=ref_feat, warped_feats=warped[..., :f],
+                       warped_depths=warped[..., f:])
         else:
-            # warp frame + depth (4 channels), then encode the aligned frames
+            # warp frame + depth (4 channels); the tail encodes the frames
             fd = torch.cat([nbrs_flat,
                             nbr_depths.reshape(b * n, h, w, 1)
                             .to(nbrs_flat.dtype)], dim=-1)
             with record_function("warp"):
                 warped = backward_warp(fd, flows.contiguous())
-            warped_frames = warped[..., :3]
-            warped_depths = warped[..., 3:].reshape(b, n, h, w, 1)
+            out.update(warped_frames=warped[..., :3],
+                       warped_depths=warped[..., 3:].reshape(b, n, h, w, 1))
+        return out
+
+    def reconstruct(self, a: Dict[str, Any],
+                    rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        """The stages after the warp (encode unless ``warp_features``,
+        fusion, SR head) on ``align``'s output: on the padded rows
+        ``rows`` = (c, d) only when given (an H strip, ``parallel/spatial``),
+        else on all of them. Each conv pads the strip's edges with zeros, as
+        the whole frame's; the SR head sees rows c to min(d, h0) of the
+        frame cropped to (h0, w0). Returns the HR rows scale * c to
+        scale * min(d, h0)."""
+        h0, w0 = a["hw"]
+        c, d = rows if rows is not None else (0, a["ref"].shape[1])
+        ref = a["ref"][:, c:d]
+        ref_depth = a["ref_depth"][:, c:d]
+        warped_depths = a["warped_depths"][:, :, c:d]
+        if self.cfg.warp_features:
+            ref_feat = a["ref_feat"][:, c:d]
+            warped_feats = a["warped_feats"][:, :, c:d]
+        else:
+            b, n, h, w = warped_depths.shape[:4]
+            warped_frames = a["warped_frames"][:, c:d]
             with record_function("encode"):
                 enc = self.encode(torch.cat([ref, warped_frames.to(ref.dtype)],
                                             dim=0))
             ref_feat = enc[:b]
-            warped_feats = enc[b:].reshape(b, n, h, w, f)
+            warped_feats = enc[b:].reshape(b, n, h, w, -1)
 
         with record_function("fusion"):
             fused = self.fusion(ref_feat, warped_feats, ref_depth,
                                 warped_depths)
+        hs = min(d, h0) - c
         with record_function("sr"):
-            hr = self.sr_head(crop_to(fused, h0, w0), crop_to(ref, h0, w0))
-        if return_aux:
-            return {
-                "hr": hr,
-                "flows": flows.reshape(b, n, h, w, 2)[:, :, :h0, :w0],
-                "depth": ref_depth[:, :h0, :w0],
-            }
-        return hr
+            return self.sr_head(crop_to(fused, hs, w0), crop_to(ref, hs, w0))

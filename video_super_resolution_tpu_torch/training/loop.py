@@ -13,6 +13,14 @@ on the device by the train step. They are sent two steps ahead: each is
 copied into pinned memory and queued with a non-blocking copy, so the
 host's work on it overlaps the steps before it. The copy itself runs on
 the compute stream, in order between steps.
+
+With ``cfg.mesh`` of more than one device (one process a rank, in a
+process group that the caller or torchrun started: ``cli train`` calls
+``runtime.mesh.initialize_distributed``), the train step runs on that mesh
+(``training/step.py``); ``cfg.data.batch_size`` is the global batch, and
+each data rank draws batch_size / data samples a step from its own stream
+(seed ``cfg.train.seed`` + its data coordinate). Rank 0 writes the
+checkpoints and the log; every rank restores.
 """
 
 from __future__ import annotations
@@ -29,26 +37,35 @@ from video_super_resolution_tpu_torch.config import TrainConfig, VSRConfig
 from video_super_resolution_tpu_torch.data import native_loader
 from video_super_resolution_tpu_torch.data.dataset import ClipDataset
 from video_super_resolution_tpu_torch.evaluation.evaluate import evaluate_all
+from video_super_resolution_tpu_torch.runtime.mesh import AXIS_DATA, build_mesh
 from video_super_resolution_tpu_torch.training.checkpoint import CheckpointManager
 from video_super_resolution_tpu_torch.training.state import create_train_state
 from video_super_resolution_tpu_torch.training.step import make_train_step
-from video_super_resolution_tpu_torch.utils.logging import MetricsLogger
+from video_super_resolution_tpu_torch.utils.logging import MetricsLogger, is_host0
 
 
-def make_batch_stream(cfg: VSRConfig, train_ds: ClipDataset
+def make_batch_stream(cfg: VSRConfig, train_ds: ClipDataset,
+                      batch_size: Optional[int] = None,
+                      seed: Optional[int] = None
                       ) -> Tuple[Iterator[dict], Callable[[], None], str]:
     """(batches, close, "native" | "python"): the native loader for a
     path-backed HR-only dataset when it can be built, else the dataset's
-    own batches."""
+    own batches; ``batch_size`` samples a batch (default
+    ``cfg.data.batch_size``). With ``seed``, the stream is drawn from that
+    seed (the dataset's RNG is reseeded) instead of ``cfg.train.seed``
+    and the dataset's own RNG."""
+    batch_size = batch_size or cfg.data.batch_size
     if (train_ds._paths_hr is not None and train_ds._paths_lr is None
             and native_loader.available()):
         loader = native_loader.NativeClipLoader(
             train_ds._paths_hr, window=cfg.model.window,
             scale=cfg.model.scale, crop_size=cfg.data.crop_size,
-            batch_size=cfg.data.batch_size, augment=cfg.data.augment,
-            seed=cfg.train.seed)
+            batch_size=batch_size, augment=cfg.data.augment,
+            seed=cfg.train.seed if seed is None else seed)
         return loader, loader.close, "native"
-    return train_ds.batches(cfg.data.batch_size), (lambda: None), "python"
+    if seed is not None:
+        train_ds.rng = np.random.default_rng(seed)
+    return train_ds.batches(batch_size), (lambda: None), "python"
 
 
 def compact_batches(batches: Iterator[dict]) -> Iterator[dict]:
@@ -103,14 +120,24 @@ def train(
             "is shared by every run on the host")
     dev = api.resolve_device(device)
     steps = max_steps or cfg.train.steps
-    step_fn = make_train_step(cfg.train.charbonnier_eps, mesh=cfg.mesh)
+    mesh = build_mesh(cfg.mesh, dev) if cfg.mesh.num_devices > 1 else None
+    batch_size, seed = cfg.data.batch_size, None
+    if mesh is not None:
+        n = mesh.size(AXIS_DATA)
+        if batch_size % n:
+            raise ValueError(f"batch {batch_size} not divisible by the data "
+                             f"axis {n}")
+        batch_size, seed = batch_size // n, cfg.train.seed + mesh.index(AXIS_DATA)
+    step_fn = make_train_step(cfg.train.charbonnier_eps, mesh=mesh)
     state = create_train_state(cfg, dev)
     mgr = CheckpointManager(cfg.train.ckpt_dir, keep=cfg.train.keep_ckpts)
     mgr.restore(state)
     start_step = state.step
+    host0 = is_host0()
 
     logger = MetricsLogger(cfg.train.ckpt_dir, "train")
-    raw, close_loader, loader_name = make_batch_stream(cfg, train_ds)
+    raw, close_loader, loader_name = make_batch_stream(cfg, train_ds,
+                                                       batch_size, seed)
     if loader_name == "native" and cfg.train.compute_dtype == "bfloat16":
         raw = compact_batches(raw)
     batches = device_prefetch(raw, dev)
@@ -128,9 +155,10 @@ def train(
                 t_last = now
                 logger.log(step + 1, {**vals, "steps_per_s": sps,
                                       "frames_per_s": sps * cfg.data.batch_size})
-            if (step + 1) % cfg.train.ckpt_every == 0 or step + 1 == steps:
+            if host0 and ((step + 1) % cfg.train.ckpt_every == 0
+                          or step + 1 == steps):
                 mgr.save(step + 1, state, cfg)
-            if (eval_ds is not None and eval_every
+            if (host0 and eval_ds is not None and eval_every
                     and (step + 1) % eval_every == 0):
                 last_eval = evaluate_all(
                     api.eval_step, state.model, eval_ds,

@@ -127,14 +127,18 @@ class TrainState:
     grad_clip: float = 0.0
     step: int = 0
 
-    def apply_gradients(self) -> torch.Tensor:
+    def apply_gradients(self, norm: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
         """One update from the parameters' ``.grad``: global-norm clip,
         then Adam at ``schedule(step)``. Returns the pre-clip global norm,
-        a 0-d f32 tensor on the parameters' device (no host sync)."""
+        a 0-d f32 tensor on the parameters' device (no host sync): the
+        norm of these gradients, or ``norm`` when the caller gives it (the
+        norm over every rank's shard under tensor parallelism)."""
         grads = [p.grad for g in self.optimizer.param_groups
                  for p in g["params"] if p.grad is not None]
-        norm = torch.linalg.vector_norm(torch.stack(
-            torch._foreach_norm(grads)))
+        if norm is None:
+            norm = torch.linalg.vector_norm(torch.stack(
+                torch._foreach_norm(grads)))
         if self.grad_clip:
             clip = torch.where(norm < self.grad_clip, 1.0,
                                self.grad_clip / norm)
