@@ -74,6 +74,17 @@ Between phases 5 and 6, the reference-era model options at full width:
 
 After phase 6:
 
+- quality: the serving-path quality tool
+  (``video_super_resolution_tpu_torch/tools/quality_serving.py``) on its
+  ``hard`` variant at full width (depth branch at 1/4 res: at crop 64 the
+  hourglass runs from 16x64 down to 1x4 maps): ``train`` for 300 steps, then
+  the six held-out ``heval_*`` clips at full size (LR 288x512, 7 frames,
+  batch 4 windows) through ``serving`` (bf16) and ``f32_kernels`` (TF32
+  off); per-clip PSNR and the delta bf16 - f32, each within 0.05 dB; counts
+  set to 0 before the train and before each eval path, read after; every
+  argument spec of the hard train step and the eval forward that no
+  earlier phase had, held against the plain version and timed as in phase
+  3 (the train step's also through the backward);
 - probe: one line saying whether g++, png.h, libpng16 and PIL exist; the
   native loader is built when g++ and png.h do, and the clip and CLI
   phase runs when PIL does (it reads and writes PNGs);
@@ -106,8 +117,10 @@ After phase 6:
 The last two lines are the ``{"kernels": [...]}`` summary (per-forward
 totals over the serving forward's specs; ``launches`` counts the serving
 forward, ``train_step_launches`` one train step, ``ref_era_launches`` and
-``espcn_mid_launches`` the two option forwards, ``new_specs`` the option
-forwards' new argument specs with their times,
+``espcn_mid_launches`` the two option forwards, ``quality_train_launches``
+the quality phase's 300 steps, ``quality_eval_launches`` each of its eval
+paths, ``new_specs`` the new argument specs of the option forwards and the
+quality phase with their times,
 ``parallel_stream_launches`` the world-size-1 8-frame ``stream_upscale``,
 ``parallel_mode_launches`` each mode at world size 1 and on each of the 2
 gloo ranks, ``tp_specs`` the TP conv shapes) and
@@ -912,6 +925,8 @@ def phase_train_kernels(kernels, calls):
     plain version without the activation gives the rest."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     for name in ("conv3x3", "correlation", "warp"):
+        if not calls[name]:
+            continue
         worst = {torch.float32: [0.0, 0.0], torch.bfloat16: [0.0, 0.0]}
         for spec in sorted(calls[name], key=str):
             for dt in (torch.float32, torch.bfloat16):
@@ -1092,7 +1107,8 @@ def phase_train(kernels):
         state = phase_train_profile(state, batch)
         phase_checkpoint(state, cfg, tmp)
     phase_eval(state, eval_ds)
-    return {"launches": launches, "sps": sps, "state": state, "cfg": cfg}
+    return {"launches": launches, "sps": sps, "state": state, "cfg": cfg,
+            "calls": calls}
 
 
 # ---------------------------------------- reference-era options at full width
@@ -1197,6 +1213,131 @@ def phase_espcn_mid(kernels, seen, serving):
     del model
     torch.cuda.empty_cache()
     return calls, counts, specs
+
+
+# ------------------------------------------------ serving-path quality check
+
+QUALITY_STEPS = 300
+
+
+def phase_quality(kernels, seen):
+    """The quality tool (``tools/quality_serving.py``) on its ``hard``
+    variant at full width (depth branch at 1/4 res, so at crop 64 the
+    hourglass runs from 16x64, W padded to a multiple of 64, down to 1x4):
+
+    - one train step on a random batch, its argument specs recorded;
+    - ``train`` for QUALITY_STEPS steps (the tool's clips and schedule);
+    - the six held-out ``heval_*`` clips at full size (LR 288x512, batch 4
+      windows) through ``serving`` (bf16) and ``f32_kernels`` (TF32 off):
+      PSNR per clip and the delta bf16 - f32; every PSNR finite and every
+      |delta| (per clip and on average) within TOLERANCE_DB;
+    - counts set to 0 before the train and before each eval path, read
+      after: each launches every kernel;
+    - each spec of the train step and the eval forward that ``seen`` lacks,
+      held against its plain version and timed (``check_new_specs``), the
+      train step's also through its backward (``phase_train_kernels``);
+      for each kernel and dtype their totals (calls x ms) a train step and
+      a batch-4 eval forward.
+    Returns the launches and the spec rows."""
+    import tempfile
+
+    from video_super_resolution_tpu_torch.tools import quality_serving as qs
+    from video_super_resolution_tpu_torch.training.state import create_train_state
+    from video_super_resolution_tpu_torch.training.step import make_train_step
+
+    t_phase = time.perf_counter()
+    cfg = qs.production_cfg("hard", QUALITY_STEPS)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    crop = cfg.data.crop_size
+    batch = {"lr": torch.rand((TRAIN_BATCH, 3, crop, crop, 3), generator=gen,
+                              device="cuda"),
+             "hr": torch.rand((TRAIN_BATCH, 4 * crop, 4 * crop, 3),
+                              generator=gen, device="cuda")}
+    train_calls = collections.defaultdict(collections.Counter)
+    with kernels.recording(train_calls):
+        make_train_step(cfg.train.charbonnier_eps)(
+            create_train_state(cfg, "cuda", seed=0), batch)
+    depth = sorted({sp[0][1:3] for sp in train_calls["conv3x3"]
+                    if sp[0][1] < 16})
+    log(f"[quality] hard train step: conv maps below 16 rows {depth}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        run = os.path.join(tmp, "hard")
+        kernels.reset()
+        rec = qs.train("hard", QUALITY_STEPS, run, log_every=100)
+        torch.cuda.synchronize()
+        train_launches = kernels.counts()
+        log(f"[quality] train hard: {json.dumps(rec)}; launches "
+            f"{train_launches}")
+        t0 = time.perf_counter()
+        ds = qs.eval_dataset("hard", cfg)
+        log(f"[quality] six heval clips at HR {qs.EVAL_HR_H}x{qs.EVAL_HR_W}, "
+            f"{qs.FRAMES} frames, made and degraded in "
+            f"{time.perf_counter() - t0:.1f} s")
+        eval_calls = collections.defaultdict(collections.Counter)
+        records, eval_launches = {}, {}
+        for path in qs.JUDGED:
+            with kernels.recording(eval_calls):
+                kernels.reset()
+                records[path] = qs.evaluate_path(run, path, ds)
+                torch.cuda.synchronize()
+                eval_launches[path] = kernels.counts()
+            log(f"[quality] {path}: PSNR {records[path]['psnr']:.4f} dB, SSIM "
+                f"{records[path]['ssim']:.5f}, eval {records[path]['eval_s']:.1f}"
+                f" s, launches {eval_launches[path]}")
+        forwards = sum(math.ceil(ds.num_frames(c) / 4) for c in ds.clip_names)
+        del ds
+    for tag, counts in [("train", train_launches)] + list(eval_launches.items()):
+        if min(counts.values()) <= 0:
+            raise AssertionError(f"[quality] {tag} did not launch every "
+                                 f"kernel: {counts}")
+    bf, f32 = (records[p] for p in qs.JUDGED)
+    pairs = {c: (bf["per_clip"][c]["psnr"], f32["per_clip"][c]["psnr"])
+             for c in sorted(bf["per_clip"])}
+    pairs["__average__"] = (bf["psnr"], f32["psnr"])
+    for c, (a, b) in pairs.items():
+        log(f"[quality] {c}: PSNR bf16 {a:.4f}, f32 {b:.4f} dB, delta "
+            f"{a - b:+.6f} dB")
+        if not (math.isfinite(a) and math.isfinite(b)
+                and abs(a - b) <= qs.TOLERANCE_DB):
+            raise AssertionError(f"[quality] {c}: bf16 {a} vs f32 {b} dB, "
+                                 f"beyond {qs.TOLERANCE_DB} dB")
+
+    fresh = collections.defaultdict(collections.Counter)
+    for name, specs in train_calls.items():
+        fresh[name].update({sp: n for sp, n in specs.items()
+                            if sp not in seen[name]})
+    phase_train_kernels(kernels, fresh)
+    rows = check_new_specs(kernels, train_calls, seen, "quality")
+    quality_totals("train step", rows)
+    seen = {k: set(seen[k]) | set(train_calls[k]) for k in seen}
+    per_forward = {k: collections.Counter({sp: n // forwards
+                                           for sp, n in c.items()})
+                   for k, c in eval_calls.items()}
+    eval_rows = check_new_specs(kernels, per_forward, seen, "quality")
+    quality_totals("eval forward", eval_rows)
+    log(f"[quality] {len(rows) + len(eval_rows)} new specs held; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"train": train_launches, "eval": eval_launches,
+            "specs": rows + eval_rows}
+
+
+def quality_totals(where, rows):
+    """One line a kernel and dtype: the new specs' count, sums of calls x
+    (kernel, bound, plain, library) ms and the largest max|diff|."""
+    groups = collections.defaultdict(list)
+    for r in rows:
+        groups[r["kernel"], r["dtype"]].append(r)
+    for (name, dt), rs in sorted(groups.items()):
+        tot = {k: sum(r["calls"] * r[k] for r in rs)
+               for k in ("ms", "bound_ms", "plain_ms")}
+        lib = (None if any(r["library_ms"] is None for r in rs)
+               else sum(r["calls"] * r["library_ms"] for r in rs))
+        log(f"[quality] totals, {where}: {name} {dt}: {len(rs)} new specs, "
+            f"{sum(r['calls'] for r in rs)} calls; kernel {tot['ms']:.4f} ms, "
+            f"bound {tot['bound_ms']:.4f}, plain {tot['plain_ms']:.4f}, "
+            f"library {'null' if lib is None else f'{lib:.4f}'}; max|diff| "
+            f"{max(r['max_abs_err'] for r in rs):.3e}")
 
 
 # ------------------------------------------------ clip, CLI and checkpoints
@@ -1783,8 +1924,11 @@ def main() -> int:
     phase_f32(kernels, window, serving_config())
     ref_calls, ref_counts, ref_specs = phase_ref_era(kernels, calls, serving)
     seen = {k: set(calls[k]) | set(ref_calls[k]) for k in calls}
-    _, mid_counts, mid_specs = phase_espcn_mid(kernels, seen, serving)
+    mid_calls, mid_counts, mid_specs = phase_espcn_mid(kernels, seen, serving)
     train = phase_train(kernels)
+    seen = {k: seen[k] | set(mid_calls[k]) | set(train["calls"][k])
+            for k in seen}
+    quality = phase_quality(kernels, seen)
     have_pil, native_ok = phase_probe()
     with tempfile.TemporaryDirectory() as tmp:
         if have_pil:
@@ -1799,7 +1943,10 @@ def main() -> int:
         row["ref_era_launches"] = ref_counts[name]
         row["espcn_mid_launches"] = mid_counts[name]
         row["new_specs"] = [sp for sp in ref_specs + mid_specs
-                            if sp["kernel"] == name]
+                            + quality["specs"] if sp["kernel"] == name]
+        row["quality_train_launches"] = quality["train"][name]
+        row["quality_eval_launches"] = {p: c[name] for p, c in
+                                        quality["eval"].items()}
         row["parallel_stream_launches"] = par["stream"][name]
         row["parallel_mode_launches"] = {
             m: [c[name] for c in counts] for m, counts in par["modes"].items()}
