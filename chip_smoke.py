@@ -30,8 +30,17 @@ the JAX package. Phases, each of which fails the run on error:
    For conv3x3 also its tile plan (staging route, pixel tile, split-K
    factor) and its rate as a share of the peak;
 4. throughput: median and p75 per-forward time of 40 back-to-back bf16
-   forwards (CUDA events), frames/s, peak device memory; then one forward
-   under torch.profiler for device time by kernel group and idle share;
+   forwards (CUDA events), frames/s, peak device memory; then the two
+   profile tools at ``VSRConfig()`` 540x960 (``[profile-model]``: first,
+   before any profile has run in the process, the host cost of a
+   ``record_function`` range and the forward with and without the four
+   newest ranges in turns; every stage of ``tools/profile_model.py``, each
+   JAX stage name present, each ms finite and > 0; the forward and a
+   launch's host cost again after the profiles. ``[profile-prefix]``:
+   ``tools/profile_prefix.py``, each JAX prefix name present, the stage
+   deltas plus glue within 1 % of the trace's device busy); then one
+   forward under torch.profiler for device time by kernel group and idle
+   share;
 5. f32 parity: the f32 serving forward through the kernels against the
    same forward through the plain versions on the card (rtol 2e-3,
    atol 5e-4), and a small window on the card against the CPU path;
@@ -85,6 +94,15 @@ After phase 6:
   argument spec of the hard train step and the eval forward that no
   earlier phase had, held against the plain version and timed as in phase
   3 (the train step's also through the backward);
+- ab: the A/B tool (``tools/quality_ab.py``): each of its seven variants
+  through ``run_variant`` on the card (f32, TF32 off) for 20 steps on the
+  tool's clips, counts set to 0 before and read after (each launches
+  every kernel); the trained weights evaluated on the held-out clips on
+  the CPU through the plain versions: |PSNR card - PSNR CPU| within 1e-5
+  dB; every argument spec of the runs that no earlier phase had (K3 at
+  d = 3 down to 3x3 maps, K4 at C = 25, K1 at 3-96 channels in f32)
+  held against its plain version in f32 and bf16, forward and backward,
+  and timed as in phase 3;
 - probe: one line saying whether g++, png.h, libpng16 and PIL exist; the
   native loader is built when g++ and png.h do, and the clip and CLI
   phase runs when PIL does (it reads and writes PNGs);
@@ -119,8 +137,9 @@ totals over the serving forward's specs; ``launches`` counts the serving
 forward, ``train_step_launches`` one train step, ``ref_era_launches`` and
 ``espcn_mid_launches`` the two option forwards, ``quality_train_launches``
 the quality phase's 300 steps, ``quality_eval_launches`` each of its eval
-paths, ``new_specs`` the new argument specs of the option forwards and the
-quality phase with their times,
+paths, ``ab_launches`` each A/B variant's 20 steps and eval, ``new_specs``
+the new argument specs of the option forwards, the quality phase and the
+A/B runs with their times,
 ``parallel_stream_launches`` the world-size-1 8-frame ``stream_upscale``,
 ``parallel_mode_launches`` each mode at world size 1 and on each of the 2
 gloo ranks, ``tp_specs`` the TP conv shapes) and
@@ -151,7 +170,6 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,           # dense tensor-core bf16
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
 MODEL_TOL = (2e-3, 5e-4)                        # composed-model rtol, atol
 WINDOW = (1, 3, 540, 960, 3)
-STAGES = ("flow", "depth", "warp", "encode", "fusion", "sr")
 TIMED_FORWARDS = 40
 GRAPH_CALLS = 10
 
@@ -638,6 +656,11 @@ def phase_profile(model, window, label="serving"):
     from torch.profiler import ProfilerActivity, profile
 
     from video_super_resolution_tpu_torch import api
+    from video_super_resolution_tpu_torch.tools.profile_prefix import (
+        RANGES,
+        device_events,
+        device_spans,
+    )
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         api.eval_step(model, window)
@@ -658,23 +681,10 @@ def phase_profile(model, window, label="serving"):
         f"{1 - busy / (end - start):.4f}")
     for g, us in groups.most_common():
         log(f"[profile] {g}: {us / 1e3:.3f} ms ({us / busy:.4f} of busy)")
-    stages = collections.Counter()
-    for e in prof.events():
-        if (e.name in STAGES and e.device_type == torch.autograd.DeviceType.CUDA
-                and e.time_range.end > e.time_range.start):
-            stages[e.name] += e.time_range.end - e.time_range.start
+    stages = device_spans(prof)
     log("[profile] stage spans on the device (record_function ranges): "
-        + ("; ".join(f"{n} {stages[n] / 1e3:.3f} ms" for n in STAGES
+        + ("; ".join(f"{n} {stages[n] / 1e3:.3f} ms" for n in RANGES
                      if n in stages) or "not recorded"))
-
-
-def device_events(prof):
-    """The device's kernels and copies in a profile (not the ranges that
-    annotate them on the device's timeline, e.g. the optimizer's step)."""
-    return [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)
-            and e.time_range.end > e.time_range.start]
 
 
 def kernel_group(name):
@@ -914,7 +924,7 @@ def train_case(name, spec, dtype, gen):
     return ins, (*ins, mode), (*ins, mode), None, xs, dtype
 
 
-def phase_train_kernels(kernels, calls):
+def phase_train_kernels(kernels, calls, counted="a step"):
     """At every argument spec the train step gave each kernel, in f32 and
     bf16: the forward against the plain version (TOL) and the gradients of
     the autograd Function (explicit backward) against autograd of the plain
@@ -957,7 +967,7 @@ def phase_train_kernels(kernels, calls):
                                                       .abs().max() / s).item())
                 worst[dt][0] = max(worst[dt][0], f_err)
         log(f"[train-kernel] {name}: {len(calls[name])} train-step specs, "
-            f"{sum(calls[name].values())} calls a step; forward max|diff| "
+            f"{sum(calls[name].values())} calls {counted}; forward max|diff| "
             f"f32 {worst[torch.float32][0]:.3e} bf16 "
             f"{worst[torch.bfloat16][0]:.3e}; backward max|diff| / max|grad| "
             f"f32 {worst[torch.float32][1]:.3e} bf16 "
@@ -1003,6 +1013,7 @@ def phase_train_profile(state, batch):
     torch.profiler: device busy, idle share, device time by group."""
     from torch.profiler import ProfilerActivity, profile
 
+    from video_super_resolution_tpu_torch.tools.profile_prefix import device_events
     from video_super_resolution_tpu_torch.training.step import make_train_step
 
     step = make_train_step()
@@ -1309,20 +1320,21 @@ def phase_quality(kernels, seen):
                             if sp not in seen[name]})
     phase_train_kernels(kernels, fresh)
     rows = check_new_specs(kernels, train_calls, seen, "quality")
-    quality_totals("train step", rows)
+    spec_totals("quality", "train step", rows)
     seen = {k: set(seen[k]) | set(train_calls[k]) for k in seen}
     per_forward = {k: collections.Counter({sp: n // forwards
                                            for sp, n in c.items()})
                    for k, c in eval_calls.items()}
     eval_rows = check_new_specs(kernels, per_forward, seen, "quality")
-    quality_totals("eval forward", eval_rows)
+    spec_totals("quality", "eval forward", eval_rows)
     log(f"[quality] {len(rows) + len(eval_rows)} new specs held; phase "
         f"{time.perf_counter() - t_phase:.1f} s")
     return {"train": train_launches, "eval": eval_launches,
-            "specs": rows + eval_rows}
+            "specs": rows + eval_rows,
+            "seen": {k: seen[k] | set(eval_calls[k]) for k in seen}}
 
 
-def quality_totals(where, rows):
+def spec_totals(tag, where, rows):
     """One line a kernel and dtype: the new specs' count, sums of calls x
     (kernel, bound, plain, library) ms and the largest max|diff|."""
     groups = collections.defaultdict(list)
@@ -1333,11 +1345,215 @@ def quality_totals(where, rows):
                for k in ("ms", "bound_ms", "plain_ms")}
         lib = (None if any(r["library_ms"] is None for r in rs)
                else sum(r["calls"] * r["library_ms"] for r in rs))
-        log(f"[quality] totals, {where}: {name} {dt}: {len(rs)} new specs, "
+        log(f"[{tag}] totals, {where}: {name} {dt}: {len(rs)} new specs, "
             f"{sum(r['calls'] for r in rs)} calls; kernel {tot['ms']:.4f} ms, "
             f"bound {tot['bound_ms']:.4f}, plain {tot['plain_ms']:.4f}, "
             f"library {'null' if lib is None else f'{lib:.4f}'}; max|diff| "
             f"{max(r['max_abs_err'] for r in rs):.3e}")
+
+
+# ------------------------------------- model-study tools: A/B and profiles
+
+AB_STEPS = 20
+AB_TOL_DB = 1e-5        # |PSNR card - PSNR CPU| a variant (PERF.md)
+PROFILE_CALLS = 8       # calls a stage (profile_model) / forwards (prefix)
+PREFIX_TOL = 0.01       # attributed share of the trace's device busy
+NEW_RANGES = ("fd", "sr_trunk", "sr_skip", "sr_conv")
+
+
+def phase_ab(kernels, seen):
+    """The A/B tool (``tools/quality_ab.py``) on the card: each of its
+    seven variants through ``run_variant`` (f32, TF32 off) for AB_STEPS
+    steps on the tool's clips, counts set to 0 before and read after (each
+    launches all three kernels); the trained weights evaluated on the
+    held-out clips on the CPU through the plain versions, |PSNR card - PSNR
+    CPU| within AB_TOL_DB; every argument spec of the runs that ``seen``
+    lacks held against its plain version in f32 and bf16, forward and
+    backward (``phase_train_kernels``), and timed (``check_new_specs``).
+    Returns the launches by variant and the spec rows."""
+    from video_super_resolution_tpu_torch import api
+    from video_super_resolution_tpu_torch.tools import quality_ab as qa
+
+    t0 = time.perf_counter()
+    clips = qa.make_data()
+    calls = collections.defaultdict(collections.Counter)
+    launches, worst = {}, 0.0
+    for name, overrides in qa.VARIANTS.items():
+        cfg = qa.small_cfg(**overrides)
+        with kernels.recording(calls):
+            kernels.reset()
+            rec, state = qa.run_variant(name, cfg, clips, AB_STEPS,
+                                        log_every=AB_STEPS, emit=lambda s: None)
+            torch.cuda.synchronize()
+            launches[name] = kernels.counts()
+        cpu_model = api.build_model(cfg, "cpu")
+        cpu_model.load_state_dict(state.model.state_dict())
+        cpu = qa.evaluate(cpu_model, qa.datasets(cfg, clips)[1])["__average__"]
+        diff = rec["psnr"] - cpu["psnr"]
+        log(f"[ab] {name}: {AB_STEPS} f32 steps + eval on the card in "
+            f"{rec['train_s']:.2f} s, loss {rec['final_loss']:.6f}; PSNR card "
+            f"{rec['psnr']:.6f} dB, CPU (plain versions, same weights) "
+            f"{cpu['psnr']:.6f} dB, diff {diff:+.3e} dB; SSIM "
+            f"{rec['ssim']:.6f} / {cpu['ssim']:.6f}; launches {launches[name]}")
+        if not (math.isfinite(diff) and abs(diff) <= AB_TOL_DB):
+            raise AssertionError(f"[ab] {name}: card - CPU PSNR {diff} dB "
+                                 f"beyond {AB_TOL_DB}")
+        if min(launches[name].values()) <= 0:
+            raise AssertionError(f"[ab] {name} did not launch every kernel: "
+                                 f"{launches[name]}")
+        worst = max(worst, abs(diff))
+        del state
+    log(f"[ab] seven variants: max |PSNR card - CPU| {worst:.3e} dB "
+        f"(limit {AB_TOL_DB})")
+    fresh = collections.defaultdict(collections.Counter)
+    for name, specs in calls.items():
+        fresh[name].update({sp: n for sp, n in specs.items()
+                            if sp not in seen[name]})
+    phase_train_kernels(kernels, fresh, "in the runs")
+    rows = check_new_specs(kernels, calls, seen, "ab")
+    spec_totals("ab", f"7 variants x {AB_STEPS} steps + eval", rows)
+    log(f"[ab] {len(rows)} new specs held; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "specs": rows}
+
+
+def _finite_positive(lines, keys):
+    return [r for r in lines for k in keys
+            if not (isinstance(r.get(k), float) and math.isfinite(r[k])
+                    and r[k] > 0)]
+
+
+def launch_us(reps=2000):
+    """Host us a launch of a one-element in-place add (host clock, no
+    synchronisation inside the loop)."""
+    x = torch.zeros(1, device="cuda")
+    x.add_(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        x.add_(1)
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e6
+
+
+def forward_turns(fn_a, fn_b, pairs=5, reps=10):
+    """Back-to-back ms a call (CUDA events, ``reps`` calls) of two setups
+    in turns (a b, b a, ...): each one's median, min and max."""
+    times = ([], [])
+    for i in range(pairs):
+        for j in ((0, 1) if i % 2 == 0 else (1, 0)):
+            times[j].append(cuda_ms((fn_a, fn_b)[j], reps=reps))
+    return [(statistics.median(t), min(t), max(t)) for t in times]
+
+
+def host_costs(model, window):
+    """The host cost of the model's four newest ranges: us a
+    ``record_function`` enter and exit with no profiler running, and the
+    bf16 540x960 forward with and without them, in turns (CUDA events);
+    also us a launch of a tiny op. Returns the forward's median ms and
+    the launch us, for comparison after the profiles."""
+    import contextlib as cl
+
+    from torch.profiler import record_function
+
+    from video_super_resolution_tpu_torch import api
+    from video_super_resolution_tpu_torch.models import sr_head, vsr
+
+    reps = 20000
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        with record_function("fd"):
+            pass
+    us = (time.perf_counter() - t0) / reps * 1e6
+
+    def without(name):
+        return cl.nullcontext() if name in NEW_RANGES else record_function(name)
+
+    def run(ranges):
+        def fn():
+            vsr.record_function = sr_head.record_function = ranges
+            try:
+                api.upscale_window(model, window)
+            finally:
+                vsr.record_function = sr_head.record_function = record_function
+        return fn
+
+    (a, a0, a1), (b, b0, b1) = forward_turns(run(record_function), run(without))
+    launch = launch_us()
+    log(f"[profile-model] host costs before any profile in this process: "
+        f"{us:.3f} us a record_function range (enter + exit, no profiler, "
+        f"{reps} in a loop), so {len(NEW_RANGES) * us:.1f} us a forward for "
+        f"the {len(NEW_RANGES)} new ranges {NEW_RANGES}; the forward with "
+        f"them {a:.3f} ms (min {a0:.3f}, max {a1:.3f}), without {b:.3f} ms "
+        f"(min {b0:.3f}, max {b1:.3f}) (medians of 5 x 10 back-to-back "
+        f"forwards in turns, CUDA events): {a - b:+.3f} ms; a tiny op's "
+        f"launch {launch:.2f} us (host clock)")
+    return a, launch
+
+
+def phase_profile_model():
+    """``tools/profile_model.py`` at VSRConfig(), bf16, 540x960: every
+    stage line printed, every JAX stage name present, each ``ms`` and
+    ``host_ms`` finite and > 0. Before it (no profile has run in the
+    process yet) the new ranges' host cost (``host_costs``); after its
+    profiles the forward's back-to-back time and a launch's host cost
+    again."""
+    from video_super_resolution_tpu_torch import api
+    from video_super_resolution_tpu_torch.config import VSRConfig
+    from video_super_resolution_tpu_torch.tools import profile_model as pm
+    from video_super_resolution_tpu_torch.tools.profile_prefix import make_window
+
+    t0 = time.perf_counter()
+    cfg = VSRConfig()
+    model = api.build_model(cfg, "cuda", seed=0)
+    window = make_window(cfg, WINDOW[2], WINDOW[3]).cuda()
+    before, launch_before = host_costs(model, window)
+    lines = pm.run(WINDOW[2], WINDOW[3], PROFILE_CALLS, "cuda",
+                   emit=lambda s: log(f"[profile-model] {s}"))
+    missing = [n for n in pm.JAX_STAGES
+               if n not in [r["stage"] for r in lines]]
+    bad = _finite_positive(lines[:-1], ("ms", "host_ms"))
+    if missing or bad:
+        raise AssertionError(f"[profile-model] missing stages {missing}, "
+                             f"bad times {bad}")
+    ts = [cuda_ms(lambda: api.upscale_window(model, window), reps=10)
+          for _ in range(5)]
+    after, lo, hi = statistics.median(ts), min(ts), max(ts)
+    log(f"[profile-model] after {len(lines) - 1} profiled stages: the forward "
+        f"{after:.3f} ms back to back (median of 5 x 10, min {lo:.3f}, max "
+        f"{hi:.3f}) against {before:.3f} before them; a tiny op's launch "
+        f"{launch_us():.2f} us against {launch_before:.2f}")
+    del model
+    torch.cuda.empty_cache()
+    log(f"[profile-model] phase {time.perf_counter() - t0:.1f} s")
+    return lines
+
+
+def phase_profile_prefix():
+    """``tools/profile_prefix.py`` at VSRConfig(), bf16, 540x960: every
+    line printed, every JAX prefix name present, each ``ms`` and ``host_ms``
+    finite and > 0, and the stage deltas plus glue within PREFIX_TOL of the
+    trace's device busy."""
+    from video_super_resolution_tpu_torch.tools import profile_prefix as pp
+
+    lines = pp.run(WINDOW[2], WINDOW[3], PROFILE_CALLS, "cuda",
+                   emit=lambda s: log(f"[profile-prefix] {s}"))
+    full = lines[-1]
+    summed = sum(r["delta_ms"] for r in lines[:-1])
+    missing = [n for n in pp.JAX_PREFIXES
+               if n not in [r["prefix"] for r in lines]]
+    bad = _finite_positive(lines, ("ms", "host_ms"))
+    log(f"[profile-prefix] attribution {full['attribution']}: stage deltas + "
+        f"glue {summed:.4f} ms of device busy {full['ms']:.4f} ms a forward "
+        f"({summed / full['ms']:.5f}); unattributed "
+        f"{full['unattributed_ms']:.4f} ms; largest stage difference to the "
+        f"device-side spans {full['span_diff_ms']} ms")
+    if missing or bad or abs(full["ms"] - summed) > PREFIX_TOL * full["ms"]:
+        raise AssertionError(f"[profile-prefix] missing {missing}, bad times "
+                             f"{bad}, or deltas {summed} ms vs busy "
+                             f"{full['ms']} ms beyond {PREFIX_TOL}")
+    return lines
 
 
 # ------------------------------------------------ clip, CLI and checkpoints
@@ -1918,6 +2134,8 @@ def main() -> int:
     model, window, calls, counts = phase_forward(kernels, serving_config())
     rows = phase_kernels(kernels, calls, counts)
     serving = phase_throughput(model, window)
+    phase_profile_model()
+    phase_profile_prefix()
     phase_profile(model, window)
     del model
     torch.cuda.empty_cache()
@@ -1929,6 +2147,7 @@ def main() -> int:
     seen = {k: seen[k] | set(mid_calls[k]) | set(train["calls"][k])
             for k in seen}
     quality = phase_quality(kernels, seen)
+    ab = phase_ab(kernels, quality["seen"])
     have_pil, native_ok = phase_probe()
     with tempfile.TemporaryDirectory() as tmp:
         if have_pil:
@@ -1943,10 +2162,12 @@ def main() -> int:
         row["ref_era_launches"] = ref_counts[name]
         row["espcn_mid_launches"] = mid_counts[name]
         row["new_specs"] = [sp for sp in ref_specs + mid_specs
-                            + quality["specs"] if sp["kernel"] == name]
+                            + quality["specs"] + ab["specs"]
+                            if sp["kernel"] == name]
         row["quality_train_launches"] = quality["train"][name]
         row["quality_eval_launches"] = {p: c[name] for p, c in
                                         quality["eval"].items()}
+        row["ab_launches"] = {v: c[name] for v, c in ab["launches"].items()}
         row["parallel_stream_launches"] = par["stream"][name]
         row["parallel_mode_launches"] = {
             m: [c[name] for c in counts] for m, counts in par["modes"].items()}

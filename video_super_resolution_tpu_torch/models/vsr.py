@@ -12,8 +12,11 @@ neighbor's frame and depth (4 channels), then encode the aligned frames
 (the default); or encode every frame, then warp each neighbor's features
 and depth together (F + 1 channels, the reference-era layout). Each stage
 runs inside a ``torch.profiler.record_function`` range named after the
-JAX package's stages (``flow``, ``depth``, ``warp``, ``encode``,
-``fusion``, ``sr``), so a profile groups its device time by stage.
+JAX package's stages (``flow``, ``depth``, ``fd`` (the neighbours'
+frame or feature + depth concat), ``warp``, ``encode``, ``fusion``,
+``sr``, and inside ``sr`` the head's ``sr_trunk``, ``sr_skip`` and
+``sr_conv``), so a profile groups its device time by stage
+(``tools/profile_prefix.py``).
 
 The forward is ``align`` (the stages up to the warp, on the whole frame)
 then ``reconstruct`` (the stages after it), which can also run on an H
@@ -118,7 +121,6 @@ class VSRModel(nn.Module):
             else:
                 depths = self.depth_net(frames_flat).reshape(b, t, h, w, 1)
         ref_depth = depths[:, center]
-        nbr_depths = torch.stack([depths[:, i] for i in nbr_idx], dim=1)
 
         f = cfg.fusion_channels
         out = {"ref": ref, "ref_depth": ref_depth, "flows": flows,
@@ -128,9 +130,12 @@ class VSRModel(nn.Module):
             with record_function("encode"):
                 feats = self.encode(frames_flat).reshape(b, t, h, w, f)
             ref_feat = feats[:, center]
-            nbr_feats = torch.stack([feats[:, i] for i in nbr_idx], dim=1)
-            fd = torch.cat([nbr_feats, nbr_depths.to(nbr_feats.dtype)],
-                           dim=-1).reshape(b * n, h, w, f + 1)
+            with record_function("fd"):
+                nbr_feats = torch.stack([feats[:, i] for i in nbr_idx], dim=1)
+                nbr_depths = torch.stack([depths[:, i] for i in nbr_idx],
+                                         dim=1)
+                fd = torch.cat([nbr_feats, nbr_depths.to(nbr_feats.dtype)],
+                               dim=-1).reshape(b * n, h, w, f + 1)
             with record_function("warp"):
                 warped = backward_warp(fd, flows.contiguous())
             warped = warped.reshape(b, n, h, w, f + 1)
@@ -138,9 +143,12 @@ class VSRModel(nn.Module):
                        warped_depths=warped[..., f:])
         else:
             # warp frame + depth (4 channels); the tail encodes the frames
-            fd = torch.cat([nbrs_flat,
-                            nbr_depths.reshape(b * n, h, w, 1)
-                            .to(nbrs_flat.dtype)], dim=-1)
+            with record_function("fd"):
+                nbr_depths = torch.stack([depths[:, i] for i in nbr_idx],
+                                         dim=1)
+                fd = torch.cat([nbrs_flat,
+                                nbr_depths.reshape(b * n, h, w, 1)
+                                .to(nbrs_flat.dtype)], dim=-1)
             with record_function("warp"):
                 warped = backward_warp(fd, flows.contiguous())
             out.update(warped_frames=warped[..., :3],
