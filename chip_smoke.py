@@ -38,9 +38,26 @@ the JAX package. Phases, each of which fails the run on error:
    JAX stage name present, each ms finite and > 0; the forward and a
    launch's host cost again after the profiles. ``[profile-prefix]``:
    ``tools/profile_prefix.py``, each JAX prefix name present, the stage
-   deltas plus glue within 1 % of the trace's device busy); then one
-   forward under torch.profiler for device time by kernel group and idle
-   share;
+   deltas plus glue within 1 % of the trace's device busy); then the
+   probe (below) and the host-path, scaling and ceiling tools at
+   ``VSRConfig()``:
+   - ``[dispatch]``: ``tools/bench_dispatch.py`` at ``--steps 20 --k 4``
+     on its PNG clips: every control finite and > 0, each launching every
+     kernel (counts set to 0 before each control, read after);
+   - ``[loader]``: ``tools/bench_loader.py`` at ``--warmup 10 --steps
+     20``, ``--loader native`` when the probe found png.h, else ``--loader
+     python``; the record's ``loader`` must be the one asked for;
+   - ``[scaling]``: ``tools/bench_scaling.py`` at ``--sizes 1,2``,
+     272x480, 2 frames a rank (ranks sharing cuda:0 over gloo): every
+     rank launches every kernel; the N = 2 streamed frames against the
+     unsharded model on the same frames, bf16 tolerance;
+   - ``[roofline]``: ``tools/bench_roofline.py``: one line an op, no
+     ``peak_share`` above 1.05; the measured ceilings and each ``k1_``
+     row's share of ``F.conv2d``'s rate; each of its K1 specs that the
+     serving forward lacks held against the plain version in f32 and bf16
+     and timed as in phase 3;
+   then one forward under torch.profiler for device time by kernel group
+   and idle share;
 5. f32 parity: the f32 serving forward through the kernels against the
    same forward through the plain versions on the card (rtol 2e-3,
    atol 5e-4), and a small window on the card against the CPU path;
@@ -103,9 +120,10 @@ After phase 6:
   d = 3 down to 3x3 maps, K4 at C = 25, K1 at 3-96 channels in f32)
   held against its plain version in f32 and bf16, forward and backward,
   and timed as in phase 3;
-- probe: one line saying whether g++, png.h, libpng16 and PIL exist; the
-  native loader is built when g++ and png.h do, and the clip and CLI
-  phase runs when PIL does (it reads and writes PNGs);
+- probe (run before ``[dispatch]``): one line saying whether g++, png.h,
+  libpng16 and PIL exist; the native loader is built when g++ and png.h
+  do, and the clip and CLI phase runs when PIL does (it reads and writes
+  PNGs);
 - clip and CLI: a 5-frame 540x960 PNG clip through ``api.upscale_clip``,
   which must equal ``eval_step`` on each window (frames/s); ``cli train``
   at ``VSRConfig()`` for 20 steps on HR-only 256x256 PNG clips (its log's
@@ -138,8 +156,10 @@ forward, ``train_step_launches`` one train step, ``ref_era_launches`` and
 ``espcn_mid_launches`` the two option forwards, ``quality_train_launches``
 the quality phase's 300 steps, ``quality_eval_launches`` each of its eval
 paths, ``ab_launches`` each A/B variant's 20 steps and eval, ``new_specs``
-the new argument specs of the option forwards, the quality phase and the
-A/B runs with their times,
+the new argument specs of the option forwards, the quality phase, the
+A/B runs and the roofline with their times, ``dispatch_launches`` each
+dispatch control, ``scaling_launches`` each rank of each N,
+``roofline_launches`` (conv3x3) the roofline's ``k1_`` rows,
 ``parallel_stream_launches`` the world-size-1 8-frame ``stream_upscale``,
 ``parallel_mode_launches`` each mode at world size 1 and on each of the 2
 gloo ranks, ``tp_specs`` the TP conv shapes) and
@@ -653,18 +673,16 @@ def phase_profile(model, window, label="serving"):
     and the idle share between the first kernel's start and the last
     kernel's end (one stream, so kernels do not overlap); the model's
     stage ranges (``record_function``) as the device spans them."""
-    from torch.profiler import ProfilerActivity, profile
-
     from video_super_resolution_tpu_torch import api
     from video_super_resolution_tpu_torch.tools.profile_prefix import (
         RANGES,
         device_events,
         device_spans,
+        profiled,
     )
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        api.eval_step(model, window)
-        torch.cuda.synchronize()
+    prof = profiled(lambda: api.eval_step(model, window), 1,
+                    torch.device("cuda"))
     kernels = device_events(prof)
     if not kernels:
         log("[profile] the profiler recorded no device events: device time "
@@ -1011,9 +1029,10 @@ def phase_train_profile(state, batch):
     """Steps on a batch already on the card: host wall a step (host clock
     around 10 steps ending in a synchronise), then one step under
     torch.profiler: device busy, idle share, device time by group."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from video_super_resolution_tpu_torch.tools.profile_prefix import device_events
+    from video_super_resolution_tpu_torch.tools.profile_prefix import (
+        device_events,
+        profiled,
+    )
     from video_super_resolution_tpu_torch.training.step import make_train_step
 
     step = make_train_step()
@@ -1024,9 +1043,7 @@ def phase_train_profile(state, batch):
         state, _ = step(state, batch)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / 10 * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        state, _ = step(state, batch)
-        torch.cuda.synchronize()
+    prof = profiled(lambda: step(state, batch), 1, torch.device("cuda"))
     evs = device_events(prof)
     host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
     log("[train-profile] host time by op (self CPU ms, calls; profiled): "
@@ -1554,6 +1571,160 @@ def phase_profile_prefix():
                              f"{bad}, or deltas {summed} ms vs busy "
                              f"{full['ms']} ms beyond {PREFIX_TOL}")
     return lines
+
+
+# -------------------------------- host-path, scaling and ceiling tools
+
+DISPATCH_STEPS, DISPATCH_K = 20, 4
+DISPATCH_WARM = 2               # warm steps a Python-loop control (JAX: 20-40)
+LOADER_WARMUP, LOADER_STEPS = 10, 20
+LOADER_ALONE = (2, 8)           # loader-alone batches skipped, timed (JAX: 10, 200)
+SCALING_SIZES = (1, 2)
+SCALING_HW = (272, 480)         # SCALING.json's representative shape
+SCALING_FPD = 2
+ROOF_SHARE = 1.05               # most a measured rate may exceed a peak by
+
+
+def phase_dispatch(kernels, clips):
+    """``tools/bench_dispatch.py`` at VSRConfig(), ``--steps 20 --k 4``,
+    DISPATCH_WARM warm steps a control, on PNG clips under ``clips``
+    (each profiled trace holds every counted launch, or the tool raises):
+    every control finite and > 0; counts
+    set to 0 before each control and read after, and each launches every
+    kernel. Returns the launches by control."""
+    from video_super_resolution_tpu_torch.tools import bench_dispatch as bd
+
+    t0 = time.perf_counter()
+    launches = {}
+
+    @contextlib.contextmanager
+    def around(name):
+        torch.cuda.synchronize()
+        kernels.reset()
+        yield
+        torch.cuda.synchronize()
+        launches[name] = kernels.counts()
+
+    rec = bd.run(DISPATCH_STEPS, DISPATCH_K, clips, "cuda", around=around,
+                 warm=DISPATCH_WARM, emit=lambda s: log(f"[dispatch] {s}"))
+    bad = [k for k, v in rec.items() if isinstance(v, float)
+           and not (math.isfinite(v) and v > 0)]
+    log(f"[dispatch] launches by control: {launches}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    if bad or len(launches) != 5 or min(
+            n for c in launches.values() for n in c.values()) <= 0:
+        raise AssertionError(f"[dispatch] bad numbers {bad} or a control "
+                             f"without a kernel: {launches}")
+    return launches
+
+
+def phase_loader(native_ok, clips):
+    """``tools/bench_loader.py`` at ``--warmup 10 --steps 20``, the loader
+    alone over LOADER_ALONE batches: with ``--loader native`` when the
+    probe found png.h, else ``--loader python``; the record's ``loader``
+    must be the one asked for."""
+    from video_super_resolution_tpu_torch.tools import bench_loader as bl
+
+    t0 = time.perf_counter()
+    want = "native" if native_ok else "python"
+    rec = bl.run(want, LOADER_WARMUP, LOADER_STEPS, clips, "cuda",
+                 loader_batches=LOADER_ALONE,
+                 emit=lambda s: log(f"[loader] {s}"))
+    log(f"[loader] --loader {want} (png.h {'found' if native_ok else 'absent'}"
+        f"): recorded {rec['loader']}; phase {time.perf_counter() - t0:.1f} s")
+    if rec["loader"] != want or _finite_positive(
+            [rec], ("loader_batches_per_s", "host_driven_steps_per_s",
+                    "device_side_steps_per_s")):
+        raise AssertionError(f"[loader] {rec}")
+
+
+def phase_scaling():
+    """``tools/bench_scaling.py`` at ``--sizes 1,2``, 272x480, 2 frames a
+    rank, VSRConfig() bf16: each rank of each N launches every kernel; the
+    N = 2 streamed frames against the unsharded model (what N = 1 runs) on
+    the same frames in this process, each rank's windows as one batch, as
+    the rank ran them, within the bf16 tolerance. Returns the launches by
+    N and rank."""
+    import numpy as np
+
+    from video_super_resolution_tpu_torch import api
+    from video_super_resolution_tpu_torch.config import VSRConfig
+    from video_super_resolution_tpu_torch.data.dataset import sliding_window_indices
+    from video_super_resolution_tpu_torch.tools import bench_scaling as bs
+
+    t0 = time.perf_counter()
+    payload, outs = bs.run(SCALING_SIZES, *SCALING_HW, SCALING_FPD,
+                           device="cuda", emit=lambda s: log(f"[scaling] {s}"))
+    frames, streamed = outs[2]
+    cfg = VSRConfig()
+    model = api.build_model(cfg, "cuda", seed=0)
+    t = len(frames)
+    windows = torch.from_numpy(np.stack([
+        frames[sliding_window_indices(t, c, cfg.model.window)]
+        for c in range(t)])).cuda()
+    with torch.no_grad():
+        want = torch.cat([model(windows[i:i + SCALING_FPD])
+                          for i in range(0, t, SCALING_FPD)])
+    rtol, atol = TOL[torch.bfloat16]
+    c = close(streamed, want, rtol, atol)
+    launches = {r["time_axis"]: r["launches"] for r in payload["results"]}
+    log(f"[scaling] {payload['backend']} on {payload['gpus']} GPU(s): N = 2 "
+        f"streamed frames vs the unsharded model: max|diff| {c['err']:.3e} "
+        f"(rtol/atol {rtol}); launches by N and rank {launches}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    del model, windows, want
+    torch.cuda.empty_cache()
+    if not c["ok"] or min(n for rs in launches.values() for r in rs
+                          for n in r.values()) <= 0:
+        raise AssertionError("[scaling] N = 2 differs from the unsharded "
+                             "model or a rank did not launch every kernel")
+    return launches
+
+
+def phase_roofline(kernels, seen):
+    """``tools/bench_roofline.py``: one line an op, no ``peak_share`` above
+    ROOF_SHARE, the ``k1_`` rows launching the conv kernel (counts set to
+    0 before, read after); the measured ceilings and each ``k1_`` row's
+    share of ``F.conv2d``'s and the bf16 matmul's rate; each ``k1_`` spec
+    that ``seen`` lacks held against its plain version in f32 and bf16 and
+    timed (``check_new_specs``). Returns the conv launches and the rows."""
+    from video_super_resolution_tpu_torch.tools import bench_roofline as br
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    kernels.reset()
+    lines = br.run("cuda", emit=lambda s: log(f"[roofline] {s}"))
+    torch.cuda.synchronize()
+    counts = kernels.counts()
+    by = {r["op"]: r for r in lines}
+    names = [op.name for op in br.roofline_ops("cuda")]
+    over = [r["op"] for r in lines if not r["peak_share"] <= ROOF_SHARE]
+    mm = max(by[n]["tflops"] for n in names if n.endswith("_bf16"))
+    f32 = by["matmul_8192_f32"]["tflops"]
+    log(f"[roofline] measured ceilings: bf16 matmul {mm:.1f} TFLOP/s "
+        f"({mm * 1e12 / PEAK_FLOPS[torch.bfloat16]:.3f} of 989), f32 matmul "
+        f"{f32:.1f} ({f32 * 1e12 / PEAK_FLOPS[torch.float32]:.3f} of 67), "
+        f"HBM (axpy) "
+        f"{by['axpy_256MB_f32']['gbps']:.1f} GB/s "
+        f"({by['axpy_256MB_f32']['gbps'] * 1e9 / HBM_BYTES_PER_S:.3f} of "
+        f"3350), transpose {by['transpose_BHWC-BCHW']['gbps']:.1f} GB/s")
+    for n in names:
+        if n.startswith("k1_"):
+            k, lib = by[n]["tflops"], by[n[3:]]["tflops"]
+            log(f"[roofline] {n}: {k:.1f} TFLOP/s = {k / lib:.3f} of F.conv2d's "
+                f"{lib:.1f}, {k / mm:.3f} of the bf16 matmul's")
+    calls = collections.defaultdict(collections.Counter)
+    for (b, h, w, ci, co) in br.SHAPES["conv"]:
+        calls["conv3x3"][((b, h, w, ci), torch.bfloat16, co, 1, 1.0, None, 1,
+                          False)] += 1
+    rows = check_new_specs(kernels, calls, seen, "roofline")
+    log(f"[roofline] {len(rows)} new specs held; conv3x3 launches "
+        f"{counts['conv3x3']}; phase {time.perf_counter() - t0:.1f} s")
+    if [r["op"] for r in lines] != names or over or counts["conv3x3"] <= 0:
+        raise AssertionError(f"[roofline] lines {[r['op'] for r in lines]}, "
+                             f"peak_share above {ROOF_SHARE}: {over}, "
+                             f"launches {counts}")
+    return {"launches": counts["conv3x3"], "specs": rows, "calls": calls}
 
 
 # ------------------------------------------------ clip, CLI and checkpoints
@@ -2136,19 +2307,26 @@ def main() -> int:
     serving = phase_throughput(model, window)
     phase_profile_model()
     phase_profile_prefix()
+    have_pil, native_ok = phase_probe()
+    with tempfile.TemporaryDirectory() as tools_tmp:
+        clips = os.path.join(tools_tmp, "clips")
+        dispatch = phase_dispatch(kernels, clips)
+        phase_loader(native_ok, clips)
+    scaling = phase_scaling()
+    roof = phase_roofline(kernels, {k: set(calls[k]) for k in calls})
     phase_profile(model, window)
     del model
     torch.cuda.empty_cache()
     phase_f32(kernels, window, serving_config())
     ref_calls, ref_counts, ref_specs = phase_ref_era(kernels, calls, serving)
-    seen = {k: set(calls[k]) | set(ref_calls[k]) for k in calls}
+    seen = {k: set(calls[k]) | set(ref_calls[k]) | set(roof["calls"][k])
+            for k in calls}
     mid_calls, mid_counts, mid_specs = phase_espcn_mid(kernels, seen, serving)
     train = phase_train(kernels)
     seen = {k: seen[k] | set(mid_calls[k]) | set(train["calls"][k])
             for k in seen}
     quality = phase_quality(kernels, seen)
     ab = phase_ab(kernels, quality["seen"])
-    have_pil, native_ok = phase_probe()
     with tempfile.TemporaryDirectory() as tmp:
         if have_pil:
             phase_clip_cli(tmp, train["sps"], native_ok)
@@ -2162,8 +2340,11 @@ def main() -> int:
         row["ref_era_launches"] = ref_counts[name]
         row["espcn_mid_launches"] = mid_counts[name]
         row["new_specs"] = [sp for sp in ref_specs + mid_specs
-                            + quality["specs"] + ab["specs"]
+                            + quality["specs"] + ab["specs"] + roof["specs"]
                             if sp["kernel"] == name]
+        row["dispatch_launches"] = {c: n[name] for c, n in dispatch.items()}
+        row["scaling_launches"] = {n: [r[name] for r in ranks]
+                                   for n, ranks in scaling.items()}
         row["quality_train_launches"] = quality["train"][name]
         row["quality_eval_launches"] = {p: c[name] for p, c in
                                         quality["eval"].items()}
@@ -2173,6 +2354,7 @@ def main() -> int:
             m: [c[name] for c in counts] for m, counts in par["modes"].items()}
         if name == "conv3x3":
             row["tp_specs"] = par["tp_specs"]
+            row["roofline_launches"] = roof["launches"]
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -376,3 +376,91 @@ def test_warp_backward_matches_plain_autograd(gen, mode, shape, dtype):
     assert backward_warp.launches == before + 1
     want = torch.autograd.grad(warp_plain(img, flow, mode), [img, flow], g)
     grad_close(got, want, dtype)
+
+
+# ------------------------------------------ the bench tools at tiny sizes
+
+def tiny_cfg(dtype="bfloat16"):
+    from video_super_resolution_tpu_torch.config import (
+        DataConfig,
+        ModelConfig,
+        TrainConfig,
+        VSRConfig,
+    )
+
+    model = ModelConfig(
+        pyramid_channels=(8, 16), flow_estimator_channels=(16, 16),
+        context_channels=(16, 16), depth_channels=8, depth_levels=2,
+        fusion_channels=16, sr_blocks=2, sr_channels=16)
+    return VSRConfig(model=model, data=DataConfig(crop_size=8, batch_size=2),
+                     train=TrainConfig(compute_dtype=dtype))
+
+
+TOOL_CLIPS = dict(n_clips=2, frames=3, h=48, w=64)
+
+
+def finite_positive(rec):
+    return all(v > 0 and v < float("inf") for v in rec.values()
+               if isinstance(v, float))
+
+
+@pytest.mark.cuda
+def test_bench_dispatch_on_the_card(gen, tmp_path):
+    from video_super_resolution_tpu_torch.tools import bench_dispatch as bd
+
+    rec = bd.run(steps=2, k=2, root=str(tmp_path), device="cuda",
+                 cfg=tiny_cfg(), clips=TOOL_CLIPS, warm=2, emit=lambda s: None)
+    assert rec["device"] != "cpu" and finite_positive(rec)
+    assert rec["device_events_per_step"] > 0
+
+
+@pytest.mark.cuda
+def test_bench_loader_on_the_card(gen, tmp_path):
+    from video_super_resolution_tpu_torch.tools import bench_loader as bl
+
+    rec = bl.run("python", 2, 3, str(tmp_path), "cuda", cfg=tiny_cfg(),
+                 clips=TOOL_CLIPS, loader_batches=(1, 4), emit=lambda s: None)
+    assert rec["loader"] == "python" and finite_positive(rec)
+
+
+@pytest.mark.cuda
+def test_bench_scaling_on_the_card(gen, monkeypatch):
+    """f32 (TF32 off, in the ranks through cuBLAS's and cuDNN's
+    NVIDIA_TF32_OVERRIDE): the 2-rank streamed frames against the
+    unsharded model on the card, per window with replicated clip edges."""
+    from video_super_resolution_tpu_torch import api
+    from video_super_resolution_tpu_torch.data.dataset import sliding_window_indices
+    from video_super_resolution_tpu_torch.tools import bench_scaling as bs
+
+    monkeypatch.setenv("NVIDIA_TF32_OVERRIDE", "0")
+    cfg = tiny_cfg("float32")
+    payload, outs = bs.run([1, 2], 32, 64, 2, 1, "cuda", cfg=cfg,
+                           emit=lambda s: None)
+    frames, out = outs[2]
+    model = api.build_model(cfg, "cuda", seed=0)
+    windows = torch.stack([torch.from_numpy(frames[sliding_window_indices(
+        4, c, 3)]) for c in range(4)]).cuda()
+    with torch.no_grad():
+        want = model(windows)
+    close(torch.from_numpy(out).cuda(), want, torch.float32)
+    for rec in payload["results"]:
+        assert all(min(c.values()) > 0 for c in rec["launches"])
+
+
+@pytest.mark.cuda
+def test_bench_roofline_on_the_card(gen):
+    """Tiny shapes: every rate finite, no share above the datasheet; each
+    ``k1_`` row against its ``F.conv2d`` row."""
+    from video_super_resolution_tpu_torch.tools import bench_roofline as br
+
+    shapes = {"matmul": (256,), "matmul_f32": (256,), "im2col": (1024, 16, 32),
+              "conv": ((1, 24, 40, 64, 64), (2, 20, 24, 3, 32)),
+              "axpy": 1 << 20, "transpose": (2, 16, 24, 8)}
+    lines = br.run("cuda", shapes=shapes, emit=lambda s: None)
+    assert all(r["peak_share"] <= 1.05 and r["ms"] > 0 for r in lines)
+    ops = {op.name: op for op in br.roofline_ops("cuda", shapes)}
+    for name, op in ops.items():
+        if name.startswith("k1_"):
+            ref = ops[name[3:]]
+            close(op.fn(*op.make_args()), ref.fn(*ref.make_args()),
+                  torch.bfloat16)

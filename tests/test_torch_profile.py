@@ -194,9 +194,39 @@ def _ev(name, start, end, device="cpu", id=0, annotation=False):
         time_range=types.SimpleNamespace(start=start, end=end), cpu_parent=None)
 
 
+class _Raw:
+    """A profiler raw (kineto) event over an ``_ev`` (ns from the trace's
+    start)."""
+
+    def __init__(self, e):
+        self._e = e
+
+    def name(self):
+        return self._e.name
+
+    def correlation_id(self):
+        return self._e.id
+
+    def device_type(self):
+        return self._e.device_type
+
+    def start_ns(self):
+        return self._e.time_range.start * 1000
+
+    def end_ns(self):
+        return self._e.time_range.end * 1000
+
+    def is_user_annotation(self):
+        return self._e.is_user_annotation
+
+
 class _Trace:
     def __init__(self, events):
         self._events = events
+        raw = [_Raw(e) for e in events]
+        self.profiler = types.SimpleNamespace(
+            kineto_results=types.SimpleNamespace(
+                trace_start_ns=lambda: 0, events=lambda: raw))
 
     def events(self):
         return self._events
@@ -247,6 +277,86 @@ def test_attribution_of_device_work():
                      on_device=True)
     assert b["unattributed_us"] == b["total_us"] == 95 and not b["work_us"]
     assert pp.prefix_lines(b, n=1)[-1]["delta_ms"] * 1e3 == pytest.approx(95)
+
+
+def test_short_trace_raises():
+    """A trace that holds fewer runs of a port kernel than its wrapper
+    counted launches raises, naming the kernel; runs beyond the count
+    (a kernel launched outside the wrappers) and other kernels do not."""
+    ev = [_ev("void conv3x3_kernel<__nv_bfloat16, 128, 64, 64>(...)", 0, 5,
+              "cuda"),
+          _ev("void conv3x3_stage_kernel<float>(...)", 5, 6, "cuda"),
+          _ev("void warp_pair_kernel<float>(...)", 6, 8, "cuda"),
+          _ev("void warp_kernel<float>(...)", 8, 9, "cuda"),
+          _ev("ampere_sgemm", 9, 12, "cuda")]
+    pp.check_traced(_Trace(ev), {"conv3x3": 1, "correlation": 0, "warp": 2})
+    pp.check_traced(_Trace(ev), {"conv3x3": 0, "warp": 1})
+    with pytest.raises(pp.ShortTrace, match="conv3x3.*traced': 1, "
+                       "'launched': 2"):
+        pp.check_traced(_Trace(ev), {"conv3x3": 2, "warp": 2})
+    with pytest.raises(RuntimeError, match="correlation"):
+        pp.check_traced(_Trace(ev), {"correlation": 1})
+
+
+def test_short_trace_is_taken_again(monkeypatch):
+    """On a card ``profiled`` takes a trace again while it lacks a counted
+    launch, with the next of LEADS, warning each time, and raises after
+    TRACES short ones."""
+    full = _Trace([_ev("void warp_kernel<float>(...)", 0, 2, "cuda")])
+    empty = _Trace([])
+    traces, leads = [], []
+
+    def fake(fn, n, dev, lead):
+        leads.append(lead)
+        return traces.pop(0), {"warp": 1}
+    monkeypatch.setattr(pp, "trace_once", fake)
+    card = torch.device("cuda")
+    traces[:] = [empty, full, empty]
+    with pytest.warns(UserWarning,
+                      match=f"tracing again with a {pp.LEADS[1]} s lead"):
+        assert pp.profiled(lambda: None, 1, card) is full
+    assert traces == [empty] and leads == list(pp.LEADS[:2])
+    traces[:], leads[:] = [empty] * pp.TRACES, []
+    with pytest.warns(UserWarning), pytest.raises(pp.ShortTrace):
+        pp.profiled(lambda: None, 1, card)
+    assert traces == [] and leads == list(pp.LEADS)
+    assert pp.LEADS[0] > 0 and list(pp.LEADS) == sorted(pp.LEADS)
+
+
+def test_spin_kernels_are_not_device_work():
+    """The spin kernels that lead a trace on the card are no device event
+    of it."""
+    ev = [_ev("spin_kernel(long)", 0, 500, "cuda", id=1),
+          _ev("void warp_kernel<float>(...)", 600, 602, "cuda", id=2)]
+    assert [e.name for e in pp.device_events(_Trace(ev))] == [ev[1].name]
+
+
+def test_short_trace_names_the_lost_launches():
+    """A short trace says which host launches lack their kernel (same
+    correlation id): their place among the launches and their time, and
+    when the first launch and the first device event came."""
+    ev = [_ev("cudaLaunchKernel", 10, 11, id=1),
+          _ev("cuLaunchKernelEx", 12, 13, id=2),
+          _ev("cudaLaunchKernel", 14, 15, id=3),
+          _ev("cudaDeviceSynchronize", 16, 30),
+          _ev("void conv3x3_kernel<float>(...)", 20, 22, "cuda", id=2),
+          _ev("void warp_kernel<float>(...)", 22, 25, "cuda", id=3)]
+    where = pp.lost_launches(_Trace(ev))
+    assert where == {"launches": 3, "lost": [(0, 10.0)],
+                     "first_device_us": 20.0, "first_launch_us": 10.0}
+    with pytest.raises(pp.ShortTrace, match=r"'lost': \[\(0, 10.0\)\]"):
+        pp.check_traced(_Trace(ev), {"conv3x3": 2})
+    pp.check_traced(_Trace(ev), {"conv3x3": 1, "warp": 1})
+
+
+@pytest.mark.parametrize("argv", [["--one", "--traces", "1"],
+                                  ["--one", "--traces", "1", "--lead", "0"]])
+def test_trace_check_needs_the_card(monkeypatch, argv):
+    from video_super_resolution_tpu_torch.tools import trace_check
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trace_check.main(argv)
 
 
 @contextlib.contextmanager

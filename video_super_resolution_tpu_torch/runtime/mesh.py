@@ -193,9 +193,12 @@ def initialize_distributed(coordinator: Optional[str] = None,
 def _route(mesh: Mesh, axis: str, op: str, t: torch.Tensor
            ) -> Tuple[Optional[dist.ProcessGroup], bool]:
     """(group, stage through host memory) for collective ``op`` of ``t``
-    along ``axis``; counts the route in ``mesh.transport``."""
+    along ``axis``; counts the route in ``mesh.transport``. An axis of one
+    rank has no group to go through: every collective along it is the
+    identity (a gloo all-gather would copy the tensor through host memory
+    and back)."""
     group = mesh.groups[axis]
-    if group is None:
+    if group is None or mesh.size(axis) == 1:
         return None, False
     backend = dist.get_backend(group)
     if t.is_cuda:

@@ -154,7 +154,9 @@ def back_to_back_ms(fn: Callable, args: tuple, n: int, dev: torch.device
 
 def work_ms(fn: Callable, args: tuple, n: int, dev: torch.device) -> float:
     """The work of one call in a profile of ``n`` calls: the device's
-    kernels and copies on the card, the top-level ops on the CPU."""
+    kernels and copies on the card (``profile_prefix.profiled``: a trace
+    that lacks a counted launch of a port kernel is taken again), the
+    top-level ops on the CPU."""
     with torch.no_grad():
         prof = pp.profiled(lambda: fn(*args), n, dev)
     work = (pp.device_events(prof) if dev.type == "cuda"

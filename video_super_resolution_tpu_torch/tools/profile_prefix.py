@@ -46,14 +46,20 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import re
 import sys
-from typing import Callable, Dict, List, Optional, Sequence
+import time
+import warnings
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from video_super_resolution_tpu_torch import api
 from video_super_resolution_tpu_torch.config import VSRConfig
+from video_super_resolution_tpu_torch.ops.correlation import correlation
+from video_super_resolution_tpu_torch.ops.fused_conv import fused_conv3x3
+from video_super_resolution_tpu_torch.ops.warp import backward_warp
 
 STAGES = ("flow", "depth", "fd", "warp", "encode", "fusion",
           "sr_trunk", "sr_skip", "sr_conv")
@@ -62,27 +68,135 @@ RANGES = STAGES + ("sr",)
 JAX_PREFIXES = ("flow", "depth", "fd", "warp", "encode", "fusion",
                 "sr_trunk", "sr_conv", "sr_skip", "full")
 CALL = "profiled_call"          # the range around each profiled call
+# the port's kernels: the wrapper that counts its launches, and the CUDA
+# kernel that each counted launch runs once (csrc/*.cu)
+WRAPPERS = {"conv3x3": fused_conv3x3, "correlation": correlation,
+            "warp": backward_warp}
+KERNEL_NAMES = {"conv3x3": re.compile(r"\bconv3x3_kernel\b"),
+                "correlation": re.compile(r"\bcorrelation_kernel\b"),
+                "warp": re.compile(r"\bwarp(_pair)?_kernel\b")}
+# On the H100 (torch 2.11, CUDA 12.8) a trace now and then lacks device
+# events, the first kernels of the trace or all of a short one, and a
+# kernel can be stamped ms before its own launch, more so after the card
+# sat idle (tools/trace_check.py, PERF.md): the profiler keeps only the
+# device events stamped inside its window. So the card spins LEADS[i] s
+# at each end of the window, and a short trace is taken again with the
+# next lead.
+LEADS = (0.05, 0.25, 1.0)
+TRACES = len(LEADS)
+SPIN_CYCLES = 1_000_000     # a spin kernel: ~0.5 ms on the card
+SPIN = re.compile(r"\bspin_kernel\b")     # torch.cuda._sleep's kernel
 
 _CUDA = torch.autograd.DeviceType.CUDA
 _CPU = torch.autograd.DeviceType.CPU
 
 
-def device_events(prof) -> list:
+class Span(NamedTuple):
+    start: float
+    end: float
+
+
+class DeviceEvent(NamedTuple):
+    """An event on the device's timeline as the profiler's event list
+    gives it (``time_range`` in us from the trace's start, ``id`` its
+    CUPTI correlation id), read from the profiler's raw events: the list
+    also parses every host event, which on the H100 made a trace of 20
+    train steps take tens of seconds more (PERF.md)."""
+
+    name: str
+    id: int
+    time_range: Span
+    is_user_annotation: bool
+
+
+def device_timeline(prof) -> List[DeviceEvent]:
+    """Every event on the device's timeline: kernels, copies and the
+    device-side spans of the ``record_function`` ranges."""
+    raw = prof.profiler.kineto_results
+    t0 = raw.trace_start_ns()
+    out = []
+    for e in raw.events():
+        if e.device_type() != _CUDA:
+            continue
+        flag = getattr(e, "is_user_annotation", None)
+        annotation = flag() if flag is not None else (
+            e.name() in RANGES + (CALL,))
+        out.append(DeviceEvent(e.name(), e.correlation_id(),
+                               Span((e.start_ns() - t0) / 1e3,
+                                    (e.end_ns() - t0) / 1e3), annotation))
+    return out
+
+
+def device_events(prof) -> List[DeviceEvent]:
     """The device's kernels and copies in a profile (not the ranges that
     annotate them on the device's timeline)."""
-    return [e for e in prof.events()
-            if e.device_type == _CUDA
-            and not _annotation(e) and e.time_range.end > e.time_range.start]
+    return [e for e in device_timeline(prof)
+            if not e.is_user_annotation and _dur(e) > 0
+            and not SPIN.search(e.name)]
+
+
+def launch_counts() -> Dict[str, int]:
+    """Each port kernel's wrapper count of launches."""
+    return {k: fn.launches for k, fn in WRAPPERS.items()}
+
+
+def lost_launches(prof) -> dict:
+    """The host's kernel launches in a trace and those whose kernel the
+    trace lacks (same CUPTI correlation id), each as (its place among the
+    launches, us after the trace's start); and the us after the trace's
+    start of its first device event."""
+    raw = prof.profiler.kineto_results
+    t0 = raw.trace_start_ns()
+    events = list(raw.events())
+    ran = {e.correlation_id() for e in events if e.device_type() == _CUDA}
+    launches = sorted(e.start_ns() for e in events
+                      if e.device_type() != _CUDA
+                      and "LaunchKernel" in e.name())
+    lost = sorted(e.start_ns() for e in events
+                  if e.device_type() != _CUDA and "LaunchKernel" in e.name()
+                  and e.correlation_id() not in ran)
+    first = min((e.start_ns() for e in events if e.device_type() == _CUDA),
+                default=None)
+    return {"launches": len(launches),
+            "lost": [(launches.index(t), (t - t0) / 1e3) for t in lost],
+            "first_device_us": None if first is None else (first - t0) / 1e3,
+            "first_launch_us": (launches[0] - t0) / 1e3 if launches else None}
+
+
+class ShortTrace(RuntimeError):
+    """A trace that lacks device events: ``short`` by kernel, ``prof``
+    the trace."""
+
+    def __init__(self, prof, short: Dict[str, dict], n_events: int):
+        where = lost_launches(prof)
+        where["lost"] = where["lost"][:8]
+        super().__init__(f"the trace lacks device events: {short} (of "
+                         f"{n_events} device events traced; {where})")
+        self.prof, self.short = prof, short
+
+
+def check_traced(prof, launched: Dict[str, int]) -> None:
+    """Raise ShortTrace when the trace holds fewer runs of a port kernel
+    than its wrapper counted launches while the trace was taken: the
+    profiler dropped device events, and every sum over the trace would
+    read low."""
+    names = [e.name for e in device_events(prof)]
+    short = {}
+    for k, pattern in KERNEL_NAMES.items():
+        traced = sum(1 for name in names if pattern.search(name))
+        if traced < launched.get(k, 0):
+            short[k] = {"traced": traced, "launched": launched[k]}
+    if short:
+        raise ShortTrace(prof, short, len(names))
 
 
 def device_spans(prof, names: Sequence[str] = RANGES) -> Dict[str, float]:
     """us of the device timeline each named range spans (the device-side
     annotations of ``record_function``), summed over its occurrences."""
     spans = collections.Counter()
-    for e in prof.events():
-        if (e.name in names and e.device_type == _CUDA
-                and e.time_range.end > e.time_range.start):
-            spans[e.name] += e.time_range.end - e.time_range.start
+    for e in device_timeline(prof):
+        if e.name in names and _dur(e) > 0:
+            spans[e.name] += _dur(e)
     return spans
 
 
@@ -144,8 +258,8 @@ def attribute(prof, on_device: bool) -> dict:
         launches = {e.id: e for e in events if e.device_type == _CPU
                     and e.name.startswith("cu") and not _annotation(e)}
         spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                       for e in events if e.device_type == _CUDA
-                       and e.name in RANGES and _dur(e) > 0)
+                       for e in device_timeline(prof)
+                       if e.name in RANGES and _dur(e) > 0)
         how = "launch"
         by_span = collections.Counter()
         for k in kernels:
@@ -170,22 +284,58 @@ def attribute(prof, on_device: bool) -> dict:
             "attribution": how, "span_diff_us": span_diff}
 
 
-def profiled(fn: Callable[[], object], n: int, dev: torch.device):
+def spin(seconds: float, dev: torch.device) -> None:
+    """Keep the card busy for ``seconds`` s with spin kernels, then wait
+    for it; ``device_events`` leaves the spin kernels out."""
+    end = time.perf_counter() + seconds
+    while time.perf_counter() < end:
+        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda.synchronize(dev)
+
+
+def trace_once(fn: Callable[[], object], n: int, dev: torch.device,
+               lead: float = 0.0):
     """``n`` calls of fn, each in a CALL range, under torch.profiler (the
-    device too on a card); returns the profiler."""
+    device too on a card, which spins ``lead`` s before the first call and
+    after the last): the profiler and each port kernel's launches counted
+    while it ran."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    acts = [ProfilerActivity.CPU]
-    if dev.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
+    card = dev.type == "cuda"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if card else [])
+    if card:
         torch.cuda.synchronize(dev)
+    before = launch_counts()
     with profile(activities=acts) as prof:
+        if card:
+            spin(lead, dev)
         for _ in range(n):
             with record_function(CALL):
                 fn()
-        if dev.type == "cuda":
+        if card:
             torch.cuda.synchronize(dev)
-    return prof
+            spin(lead, dev)
+    return prof, {k: v - before[k] for k, v in launch_counts().items()}
+
+
+def profiled(fn: Callable[[], object], n: int, dev: torch.device):
+    """The profiler of ``trace_once(fn, n, dev, lead)``. On a card the
+    trace must hold every counted launch of the port's kernels
+    (``check_traced``): one that does not is taken again with the next of
+    LEADS (a warning says what it lacked), and the last raises
+    ShortTrace."""
+    for i, lead in enumerate(LEADS):
+        prof, launched = trace_once(fn, n, dev, lead)
+        if dev.type != "cuda":
+            return prof
+        try:
+            check_traced(prof, launched)
+            return prof
+        except ShortTrace as e:
+            if i == TRACES - 1:
+                raise
+            warnings.warn(f"{e}; tracing again with a {LEADS[i + 1]} s "
+                          f"lead (trace {i + 2} of {TRACES})")
 
 
 def make_window(cfg: VSRConfig, h: int, w: int) -> torch.Tensor:
