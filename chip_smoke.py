@@ -18,11 +18,16 @@ the JAX package. Phases, each of which fails the run on error:
    dtype and options, e.g. correlation's fused slope and output dtype), the
    kernel is held against its plain PyTorch version, in f32 (TF32 off;
    rtol 1e-4, atol 1e-4) and in bf16 (rtol 2e-2, atol 2e-2), and timed
-   beside the plain version, one PyTorch library call where one computes
-   the same function (F.conv2d, F.grid_sample), and the least time the card
-   could take (bytes / 3.35 TB/s vs FLOP / peak rate). Two times are
-   printed for each: "host-incl." is CUDA events around back-to-back
-   wrapper calls, which at small shapes measures the wrapper's host path;
+   beside the plain version, the same function by PyTorch library calls
+   where there are such, and the least time the card could take (bytes /
+   3.35 TB/s vs FLOP / peak rate). The library route computes the
+   kernel's whole function: for conv3x3 ``F.conv2d`` with the bias,
+   residual, LeakyReLU and shuffle as eager ops
+   (``tools/bench_conv.py:conv3x3_library``), for the warp
+   ``F.grid_sample`` on an f32 grid (``tools/bench_warp.py:warp_library``).
+   Two times are printed for each: "host-incl." is CUDA events around
+   back-to-back wrapper calls, which at small shapes measures the
+   wrapper's host path;
    "device" is CUDA events around the replay of a CUDA graph that captured
    GRAPH_CALLS calls, which runs the same kernels with no host work
    between them (warm L2 in both). The per-forward totals of the
@@ -56,6 +61,23 @@ the JAX package. Phases, each of which fails the run on error:
      row's share of ``F.conv2d``'s rate; each of its K1 specs that the
      serving forward lacks held against the plain version in f32 and bf16
      and timed as in phase 3;
+   - ``[kernel-vs-library]``: the kernel-against-library tools at their
+     defaults, each under the call-site recording (the tools' own call
+     sites too): ``tools/bench_conv.py --check`` (K1 against
+     ``conv3x3_library``, the same function by ``F.conv2d`` and eager
+     ops, at the JAX tool's four bf16 shapes: kernel, library and floor
+     ms, ``roofline_report``'s lines), ``tools/bench_warp.py --check``
+     (K4 against ``F.grid_sample`` on an f32 grid) and
+     ``tools/bench_model_ab.py`` (the four conv/warp variants of the bf16
+     serving forward, interleaved: ms/frame, device ms/frame, launches);
+     every record finite, each max|diff| against the plain version within
+     the atol above; each variant launches a forward exactly what the
+     serving forward launches of the kernels it keeps (conv3x3 59,
+     correlation 4, warp 4) and none of those it swaps; each bf16
+     variant's output >= 40 dB PSNR (Y, border 4) against kernel/kernel's;
+     the four variants in f32 (TF32 off) within rtol 2e-3, atol 5e-4 of
+     kernel/kernel; each argument spec the tools gave that no earlier
+     phase had held and timed as in phase 3;
    then one forward under torch.profiler for device time by kernel group
    and idle share;
 5. f32 parity: the f32 serving forward through the kernels against the
@@ -157,9 +179,12 @@ forward, ``train_step_launches`` one train step, ``ref_era_launches`` and
 the quality phase's 300 steps, ``quality_eval_launches`` each of its eval
 paths, ``ab_launches`` each A/B variant's 20 steps and eval, ``new_specs``
 the new argument specs of the option forwards, the quality phase, the
-A/B runs and the roofline with their times, ``dispatch_launches`` each
-dispatch control, ``scaling_launches`` each rank of each N,
+A/B runs, the roofline and the kernel tools with their times,
+``dispatch_launches`` each dispatch control, ``scaling_launches`` each
+rank of each N,
 ``roofline_launches`` (conv3x3) the roofline's ``k1_`` rows,
+``bench_conv_launches`` and ``bench_warp_launches`` the two kernel tools'
+runs, ``model_ab_launches`` each A/B variant's timed forwards,
 ``parallel_stream_launches`` the world-size-1 8-frame ``stream_upscale``,
 ``parallel_mode_launches`` each mode at world size 1 and on each of the 2
 gloo ranks, ``tp_specs`` the TP conv shapes) and
@@ -278,20 +303,22 @@ class Kernels:
         return {k: fn.launches for k, fn in self.wrappers.items()}
 
     @contextlib.contextmanager
-    def patched(self, make):
-        """Replace each call site's function by make(name, original)."""
-        saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in self.sites]
+    def patched(self, make, extra=()):
+        """Replace each call site's function (and those of ``extra``, more
+        (module, attribute, kernel) sites) by make(name, original)."""
+        sites = self.sites + list(extra)
+        saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in sites]
         try:
-            for mod, attr, name in self.sites:
+            for mod, attr, name in sites:
                 setattr(mod, attr, make(name, self.wrappers[name]))
             yield
         finally:
             for mod, attr, fn in saved:
                 setattr(mod, attr, fn)
 
-    def recording(self, calls):
-        """Call sites go through the kernels; calls[name] counts each call's
-        argument spec."""
+    def recording(self, calls, extra=()):
+        """Call sites (and ``extra`` ones) go through the kernels;
+        calls[name] counts each call's argument spec."""
         def make(name, fn):
             sig = inspect.signature(fn)
 
@@ -301,7 +328,7 @@ class Kernels:
                 calls[name][spec_of(name, bound.arguments)] += 1
                 return fn(*args, **kw)
             return rec
-        return self.patched(make)
+        return self.patched(make, extra)
 
     def plain_path(self):
         """Call sites run the plain PyTorch versions on the card."""
@@ -359,11 +386,15 @@ def make_case(name, spec, dtype, gen):
     """Random inputs of a recorded spec, cast to dtype; returns the wrapper
     arguments, the plain version's arguments, a library callable or None,
     FLOP and bytes. The conv's weight reaches the wrapper prepared, as the
-    model's modules hand it over, and the plain version as OIHW."""
-    import torch.nn.functional as F
-
+    model's modules hand it over, and the plain version as OIHW. The
+    library callables compute the kernel's whole function: the conv with
+    its epilogue (``tools/bench_conv.py:conv3x3_library``), the warp on an
+    f32 grid (``tools/bench_warp.py:warp_library``)."""
     from video_super_resolution_tpu_torch.ops.fused_conv import prepare_conv3x3_weight
+    from video_super_resolution_tpu_torch.tools.bench_conv import conv3x3_library
+    from video_super_resolution_tpu_torch.tools.bench_warp import warp_library
     from video_super_resolution_tpu_torch.utils.profiling import (
+        conv3x3_roofline_ms,
         correlation_roofline_ms,
         warp_roofline_ms,
     )
@@ -386,14 +417,11 @@ def make_case(name, spec, dtype, gen):
         prep = prepare_conv3x3_weight(wt, bias, dtype)
         args = (x, prep, None, slope, d, r, rr, shuffle)
         plain_args = (x, wt, prep.bias, slope, d, r, rr, shuffle)
-        wl, bl = wt.to(dtype), bias.to(dtype)
-        xn = x.permute(0, 3, 1, 2)
-        lib = lambda: F.conv2d(xn, wl, bl, padding=d, dilation=d)  # noqa: E731
-        flops = 2 * b * h * w * cout * 9 * cin
-        nbytes = (x.numel() * x.element_size() + wl.numel() * wl.element_size()
-                  + cout * 4 + b * h * w * cout * x.element_size()
-                  + (0 if r is None else r.numel() * r.element_size()))
-        return args, plain_args, lib, flops, nbytes
+        wl = wt.to(dtype)
+        lib = lambda: conv3x3_library(x, wl, prep.bias, *args[3:])  # noqa: E731
+        c = conv3x3_roofline_ms(b, h, w, cin, cout, x.element_size(),
+                                0 if r is None else r.numel() * r.element_size())
+        return args, plain_args, lib, c["flops"], c["bytes"]
     if name == "correlation":
         xs, in_dt, d, slope, out_dt = spec
         od = dtype if out_dt == in_dt else out_dt   # the forward's: out = in
@@ -406,14 +434,7 @@ def make_case(name, spec, dtype, gen):
     b, h, w, c = xs
     img = rn(xs, dtype)
     flow = rn((b, h, w, 2), torch.float32) * 3.0
-    ys = torch.arange(h, device=dev, dtype=torch.float32)[:, None]
-    xg = torch.arange(w, device=dev, dtype=torch.float32)[None, :]
-    grid = torch.stack([(xg + flow[..., 0]) * 2 / max(w - 1, 1) - 1,
-                        (ys + flow[..., 1]) * 2 / max(h - 1, 1) - 1], -1)
-    imn = img.permute(0, 3, 1, 2)
-    grid = grid.to(dtype)
-    lib = lambda: F.grid_sample(imn, grid, mode="bilinear",  # noqa: E731
-                                padding_mode=mode, align_corners=True)
+    lib = lambda: warp_library(img, flow, mode)  # noqa: E731
     r = warp_roofline_ms(b, h, w, c, dtype.itemsize)
     return (img, flow, mode), (img, flow, mode), lib, r["flops"], r["bytes"]
 
@@ -450,8 +471,9 @@ def plan_note(name, spec, args):
 
 def host_note(kernels, specs, gen, reps=200):
     """Host time a call (no synchronisation inside the loop) of the conv
-    wrapper and of F.conv2d at the smallest recorded shape, where the
-    device work is least: what the forward's host path pays per conv."""
+    wrapper and of the library route (F.conv2d and its eager epilogue) at
+    the smallest recorded shape, where the device work is least: what the
+    forward's host path pays per conv."""
     spec = min(specs, key=lambda sp: math.prod(sp[0]))
     args, _, lib, _, _ = make_case("conv3x3", spec, spec[1], gen)
 
@@ -467,7 +489,8 @@ def host_note(kernels, specs, gen, reps=200):
 
     k_us = host_us(lambda: kernels.wrappers["conv3x3"](*args))
     log(f"[host] conv3x3 at {spec[0]} -> {spec[2]}: wrapper {k_us:.1f} us a "
-        f"call, F.conv2d {host_us(lib):.1f} us (host clock, {reps} calls)")
+        f"call, library route {host_us(lib):.1f} us (host clock, {reps} "
+        f"calls)")
 
 
 def bound_ms(flops, nbytes, dtype):
@@ -1727,6 +1750,137 @@ def phase_roofline(kernels, seen):
     return {"launches": counts["conv3x3"], "specs": rows, "calls": calls}
 
 
+AB_PSNR_DB = 40.0       # least PSNR of a bf16 A/B variant against kernel/kernel
+
+
+def _finite_numbers(rec):
+    """Every number of a record (nested dicts included) is finite."""
+    vals = [v for v in rec.values() if not isinstance(v, (str, list))]
+    return all(_finite_numbers(v) if isinstance(v, dict)
+               else isinstance(v, (int, float)) and math.isfinite(v)
+               for v in vals)
+
+
+def phase_kernel_vs_library(kernels, seen, counts):
+    """The kernel-against-library tools at their defaults, each under
+    ``Kernels.recording`` (the tools' own call sites recorded too), counts
+    set to 0 before each and read after:
+    - ``tools/bench_conv.py --check``: K1 and ``conv3x3_library`` at the
+      JAX tool's four shapes, bf16;
+    - ``tools/bench_warp.py --check``: K4 and ``warp_library`` (f32 grid);
+    - ``tools/bench_model_ab.py``: the four conv/warp variants of the bf16
+      serving forward, interleaved.
+    Every record finite, no ``error``; each ``max_abs_diff_vs_plain``
+    within TOL's atol; each A/B variant launching per forward what the
+    serving forward (``counts``) launches of the kernels it keeps and none
+    of those it swaps; each bf16 variant's output >= AB_PSNR_DB against
+    kernel/kernel's (the repo's PSNR: Y, border 4); the four variants in
+    f32 (TF32 off) at 540x960 held against kernel/kernel at MODEL_TOL;
+    each argument spec the tools gave that ``seen`` lacks held and timed
+    (``check_new_specs``). Returns the launches by tool and the spec
+    rows."""
+    import numpy as np
+
+    from video_super_resolution_tpu_torch import api, serving_config
+    from video_super_resolution_tpu_torch.evaluation.metrics import psnr
+    from video_super_resolution_tpu_torch.tools import bench_conv as bc
+    from video_super_resolution_tpu_torch.tools import bench_model_ab as ab
+    from video_super_resolution_tpu_torch.tools import bench_warp as bw
+    from video_super_resolution_tpu_torch.utils.profiling import roofline_report
+
+    t0 = time.perf_counter()
+    calls = collections.defaultdict(collections.Counter)
+    tool_sites = [(bc, "fused_conv3x3", "conv3x3"), (bw, "backward_warp", "warp")]
+    outs, launches = {}, {}
+
+    def emit(line):
+        log(f"[kernel-vs-library] {line}")
+
+    with kernels.recording(calls, tool_sites):
+        conv_lines, launches["bench_conv"] = counted(
+            kernels, lambda: bc.run(check=True, emit=emit))
+        warp_lines, launches["bench_warp"] = counted(
+            kernels, lambda: bw.run(check=True, emit=emit))
+        ab_lines = ab.run(emit=emit, outputs=outs)
+    bad = [r for r in conv_lines + warp_lines + ab_lines
+           if "error" in r or not _finite_numbers(r)]
+    if bad:
+        raise AssertionError(f"[kernel-vs-library] failed or non-finite "
+                             f"records: {bad}")
+    # bench_conv's inputs are bf16, bench_warp's f32
+    far = ([r for r in conv_lines if not r["max_abs_diff_vs_plain"]
+            <= TOL[torch.bfloat16][1]]
+           + [r for r in warp_lines if not r["max_abs_diff_vs_plain"]
+              <= TOL[torch.float32][1]])
+    by = {(r["impl"], tuple(r["shape"])): r for r in conv_lines}
+    for (b, h, w, ci, co) in bc.SHAPES:
+        k, lib = by["kernel", (b, h, w, ci, co)], by["library", (b, h, w, ci, co)]
+        log(f"[kernel-vs-library] K1 {b}x{h}x{w}x{ci}->{co} bf16: kernel "
+            f"{k['ms']:.4f} ms, library {lib['ms']:.4f} ms, floor "
+            f"{k['floor_ms']:.4f} ms; library / kernel "
+            f"{lib['ms'] / k['ms']:.3f}")
+    log("[kernel-vs-library] " + roofline_report(
+        {f"{r['impl']} conv3x3 {r['shape']}": (r["ms"], r["floor_ms"])
+         for r in conv_lines}).replace("\n", "\n[kernel-vs-library] "))
+    for r in warp_lines:
+        if r["impl"] == "library":
+            k = next(q for q in warp_lines if q["impl"] == "kernel"
+                     and q["shape"] == r["shape"])
+            log(f"[kernel-vs-library] K4 {r['shape']} f32: kernel "
+                f"{k['ms']:.4f} ms, grid_sample (f32 grid) {r['ms']:.4f} ms, "
+                f"bound {r['hbm_bound_ms']:.4f} ms; max|diff| vs plain "
+                f"{k['max_abs_diff_vs_plain']:.3e} / "
+                f"{r['max_abs_diff_vs_plain']:.3e}")
+    wrong = {}
+    for r in ab_lines:
+        conv, warp = ab.parse_variant(r["variant"])
+        per = {k: v / r["timed_forwards"] for k, v in r["launches"].items()}
+        want = {"conv3x3": counts["conv3x3"] if conv == "kernel" else 0,
+                "correlation": counts["correlation"],
+                "warp": counts["warp"] if warp == "kernel" else 0}
+        if per != want:
+            wrong[r["variant"]] = (per, want)
+        r["psnr_vs_first_db"] = psnr(*(outs[v].float().cpu().numpy() for v in
+                                       (r["variant"], ab.VARIANTS[0])))
+        log(f"[kernel-vs-library] A/B {r['variant']}: {r['ms_per_frame']:.3f} "
+            f"ms/frame (median {r['median_ms']:.3f}, min {r['min_ms']:.3f}, "
+            f"std {r['std_ms']:.3f}), device {r['device_ms_per_frame']:.3f} "
+            f"ms/frame, launches a forward {per}, PSNR vs kernel/kernel "
+            f"{r['psnr_vs_first_db']:.2f} dB, max|diff| "
+            f"{r['max_abs_diff_vs_first']:.3e}")
+    low = [r["variant"] for r in ab_lines if r["psnr_vs_first_db"] < AB_PSNR_DB]
+    del outs
+    # the four variants in f32 against each other
+    cfg = serving_config()
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                compute_dtype="float32"))
+    model = api.build_model(cfg, "cuda", seed=0)
+    x = torch.from_numpy(np.random.default_rng(0).random(WINDOW)).cuda().float()
+    rtol, atol = MODEL_TOL
+    ref = ab.variant_forward(ab.VARIANTS[0], model)(x)
+    f32_bad = []
+    for label in ab.VARIANTS[1:]:
+        got = ab.variant_forward(label, model)(x)
+        err = (got - ref).abs().max().item()
+        log(f"[kernel-vs-library] f32 (TF32 off) {label} vs {ab.VARIANTS[0]} "
+            f"at 540x960: max|diff| {err:.3e} (rtol {rtol}, atol {atol})")
+        if not torch.allclose(got, ref, rtol=rtol, atol=atol):
+            f32_bad.append(label)
+        del got
+    del model, ref, x
+    torch.cuda.empty_cache()
+    rows = check_new_specs(kernels, calls, seen, "kernel-vs-library")
+    launches["model_ab"] = {r["variant"]: r["launches"] for r in ab_lines}
+    log(f"[kernel-vs-library] {len(rows)} new specs held; launches "
+        f"{launches}; phase {time.perf_counter() - t0:.1f} s")
+    if far or wrong or low or f32_bad:
+        raise AssertionError(
+            f"[kernel-vs-library] beyond TOL's atol {far}; launches a "
+            f"forward (got, want) {wrong}; below "
+            f"{AB_PSNR_DB} dB {low}; f32 beyond MODEL_TOL {f32_bad}")
+    return {"launches": launches, "specs": rows, "calls": calls}
+
+
 # ------------------------------------------------ clip, CLI and checkpoints
 
 def phase_probe():
@@ -2314,13 +2468,16 @@ def main() -> int:
         phase_loader(native_ok, clips)
     scaling = phase_scaling()
     roof = phase_roofline(kernels, {k: set(calls[k]) for k in calls})
+    kvl = phase_kernel_vs_library(
+        kernels, {k: set(calls[k]) | set(roof["calls"][k]) for k in calls},
+        counts)
     phase_profile(model, window)
     del model
     torch.cuda.empty_cache()
     phase_f32(kernels, window, serving_config())
     ref_calls, ref_counts, ref_specs = phase_ref_era(kernels, calls, serving)
     seen = {k: set(calls[k]) | set(ref_calls[k]) | set(roof["calls"][k])
-            for k in calls}
+            | set(kvl["calls"][k]) for k in calls}
     mid_calls, mid_counts, mid_specs = phase_espcn_mid(kernels, seen, serving)
     train = phase_train(kernels)
     seen = {k: seen[k] | set(mid_calls[k]) | set(train["calls"][k])
@@ -2341,7 +2498,7 @@ def main() -> int:
         row["espcn_mid_launches"] = mid_counts[name]
         row["new_specs"] = [sp for sp in ref_specs + mid_specs
                             + quality["specs"] + ab["specs"] + roof["specs"]
-                            if sp["kernel"] == name]
+                            + kvl["specs"] if sp["kernel"] == name]
         row["dispatch_launches"] = {c: n[name] for c, n in dispatch.items()}
         row["scaling_launches"] = {n: [r[name] for r in ranks]
                                    for n, ranks in scaling.items()}
@@ -2352,6 +2509,10 @@ def main() -> int:
         row["parallel_stream_launches"] = par["stream"][name]
         row["parallel_mode_launches"] = {
             m: [c[name] for c in counts] for m, counts in par["modes"].items()}
+        row["bench_conv_launches"] = kvl["launches"]["bench_conv"][name]
+        row["bench_warp_launches"] = kvl["launches"]["bench_warp"][name]
+        row["model_ab_launches"] = {v: c[name] for v, c in
+                                    kvl["launches"]["model_ab"].items()}
         if name == "conv3x3":
             row["tp_specs"] = par["tp_specs"]
             row["roofline_launches"] = roof["launches"]

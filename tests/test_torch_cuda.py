@@ -464,3 +464,84 @@ def test_bench_roofline_on_the_card(gen):
             ref = ops[name[3:]]
             close(op.fn(*op.make_args()), ref.fn(*ref.make_args()),
                   torch.bfloat16)
+
+
+# ------------------------- the library routes of the kernel-against-library tools
+
+# (B, H, W, Cin, Cout, dilation, res_repeat or 0 for no res, shuffle): the
+# JAX conv tool's four shapes, the SR trunk conv with its skip, the
+# two_stage head's upsample_0, a dilated depth-net conv
+LIB_CONV = [(b, h, w, ci, co, 1, 0, False)
+            for (b, h, w, ci, co) in ((1, 544, 960, 64, 64),
+                                      (2, 544, 960, 131, 64),
+                                      (2, 136, 240, 243, 128),
+                                      (3, 272, 480, 192, 64))] + [
+    (1, 540, 960, 64, 64, 1, 1, False), (1, 540, 960, 64, 256, 1, 0, True),
+    (3, 136, 240, 64, 64, 2, 0, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,h,w,cin,cout,d,rr,shuffle", LIB_CONV)
+def test_conv3x3_library_matches_plain(gen, dtype, b, h, w, cin, cout, d, rr,
+                                       shuffle):
+    """The library route (F.conv2d in the input's dtype, then the f32
+    epilogue: in bf16 one more rounding than the plain version) at the
+    model's shapes, TOL."""
+    from video_super_resolution_tpu_torch.tools.bench_conv import conv3x3_library
+
+    x = rn(gen, (b, h, w, cin), dtype)
+    wt = rn(gen, (cout, cin, 3, 3)) / (9 * cin) ** 0.5
+    bias = rn(gen, (cout,)) * 0.1
+    res = rn(gen, (b // rr, h, w, cout), dtype) if rr else None
+    got = conv3x3_library(x, wt.to(dtype), bias, 0.1, d, res, max(rr, 1),
+                          shuffle)
+    want = conv3x3_plain(x, wt, bias, 0.1, d, res, max(rr, 1))
+    close(got, pixel_shuffle(want, 2) if shuffle else want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mode", ["zeros", "border"])
+@pytest.mark.parametrize("shape", [(2, 544, 960, 4), (2, 136, 240, 32),
+                                   (2, 540, 960, 4), (2, 544, 960, 65)])
+def test_warp_library_matches_plain(gen, dtype, mode, shape):
+    """``F.grid_sample`` on the f32 grid against the exact gather on the
+    warp tool's frames (in [0, 1)) and smooth flows, TOL: the normalised
+    grid's round-off (~W * 2^-24 px) stays below the f32 tolerance there."""
+    import numpy as np
+
+    from video_super_resolution_tpu_torch.tools.bench_warp import (
+        warp_inputs,
+        warp_library,
+    )
+
+    img, flow = warp_inputs(np.random.default_rng(0), shape, 6.0,
+                            torch.device("cuda"))
+    img = img.to(dtype)
+    close(warp_library(img, flow, mode), warp_plain(img, flow, mode), dtype)
+
+
+@pytest.mark.cuda
+def test_kernel_tools_on_the_card(gen):
+    """The three kernel-against-library tools at tiny sizes: finite
+    records within TOL of the plain versions; the A/B's kernel variant
+    launches every kernel, the library one neither the conv nor the warp."""
+    from video_super_resolution_tpu_torch.tools import bench_conv as bc
+    from video_super_resolution_tpu_torch.tools import bench_model_ab as ab
+    from video_super_resolution_tpu_torch.tools import bench_warp as bw
+
+    for r in bc.run([(1, 24, 40, 64, 64), (2, 20, 24, 3, 32)], n=2,
+                    check=True, emit=lambda s: None):
+        assert r["max_abs_diff_vs_plain"] <= 2e-2 and 0 < r["peak_share"] <= 1.05
+    for r in bw.run(shapes=[(2, 20, 32, 4)], n=2, check=True,
+                    emit=lambda s: None):
+        assert r["max_abs_diff_vs_plain"] <= 1e-4 and r["ms"] > 0
+    recs = ab.run(["kernel/kernel", "library/library"], h=32, w=48, n=2,
+                  reps=2, cfg=tiny_cfg("float32"), emit=lambda s: None)
+    kk, ll = recs
+    assert min(kk["launches"].values()) > 0
+    assert ll["launches"]["conv3x3"] == ll["launches"]["warp"] == 0
+    assert ll["launches"]["correlation"] == kk["launches"]["correlation"]
+    assert ll["max_abs_diff_vs_first"] <= 5e-4
+    assert kk["ms_per_frame"] > 0 and kk["device_ms_per_frame"] > 0

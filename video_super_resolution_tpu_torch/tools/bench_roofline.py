@@ -162,29 +162,38 @@ def k1_conv(x: torch.Tensor, prep) -> torch.Tensor:
     return fused_conv3x3(x, prep, None, 1.0)
 
 
-def time_op(op: RoofOp, dev: torch.device, reps: int = REPS) -> dict:
-    """The op's line: best of ``reps`` timings of ``op.n`` back-to-back
-    calls after one warm-up call."""
-    args = op.make_args()
-    op.fn(*args)
-    sync(dev)
+def best_s(fn: Callable[[], object], n: int, dev: torch.device,
+           reps: int = REPS) -> float:
+    """Seconds a call of fn(): the best of ``reps`` timings of ``n``
+    back-to-back calls, by CUDA events on the card, the host clock on the
+    CPU. The caller warms fn up first."""
     best = math.inf
     for _ in range(reps):
         if dev.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            for _ in range(op.n):
-                op.fn(*args)
+            for _ in range(n):
+                fn()
             end.record()
             sync(dev)
-            s = start.elapsed_time(end) / 1e3 / op.n
+            s = start.elapsed_time(end) / 1e3 / n
         else:
             t0 = time.perf_counter()
-            for _ in range(op.n):
-                op.fn(*args)
-            s = (time.perf_counter() - t0) / op.n
+            for _ in range(n):
+                fn()
+            s = (time.perf_counter() - t0) / n
         best = min(best, s)
+    return best
+
+
+def time_op(op: RoofOp, dev: torch.device, reps: int = REPS) -> dict:
+    """The op's line: best of ``reps`` timings of ``op.n`` back-to-back
+    calls after one warm-up call."""
+    args = op.make_args()
+    op.fn(*args)
+    sync(dev)
+    best = best_s(lambda: op.fn(*args), op.n, dev, reps)
     del args
     share = None
     if dev.type == "cuda":

@@ -7,18 +7,22 @@
   stages appear in it as ``record_function`` ranges (``flow``, ``depth``,
   ``warp``, ``encode``, ``fusion``, ``sr``; ``models/vsr.py``), the
   counterparts of the JAX package's ``jax.named_scope``s.
-- ``correlation_roofline_ms`` / ``warp_roofline_ms``: the least time an
-  H100 SXM could take for the cost volume and the backward warp, the
-  larger of bytes over 3.35 TB/s and FLOP over the peak rate of the
-  operands' type (989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s f32),
-  each input read and each output written once.
+- ``correlation_roofline_ms`` / ``warp_roofline_ms`` /
+  ``conv3x3_roofline_ms``: the least time an H100 SXM could take for the
+  cost volume, the backward warp and the fused 3x3 conv, the larger of
+  bytes over 3.35 TB/s and FLOP over the peak rate of the operands' type
+  (989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s f32), each input read
+  and each output written once: the datasheet's rates, against which a
+  share of speed-of-light is stated (the card's power limit beside it);
+- ``roofline_report``: "measured vs floor" lines, the JAX package's
+  lines letter for letter.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Tuple
 
 import torch
 
@@ -65,3 +69,24 @@ def warp_roofline_ms(b: int, h: int, w: int, c: int,
     return _roofline(7 * b * h * w * c,
                      2 * b * h * w * c * dtype_bytes + b * h * w * 2 * 4,
                      dtype_bytes)
+
+
+def conv3x3_roofline_ms(b: int, h: int, w: int, cin: int, cout: int,
+                        dtype_bytes: int, res_bytes: int = 0) -> Dict:
+    """3x3 conv of x (B, H, W, Cin) to Cout channels, + f32 bias (+ a
+    residual of ``res_bytes`` in all): read x, the (Cout, Cin, 3, 3)
+    weight, the bias and the residual, write the output; 2 * 9 * Cin FLOP
+    an output element."""
+    return _roofline(2 * b * h * w * cout * 9 * cin,
+                     (b * h * w * (cin + cout) + 9 * cin * cout) * dtype_bytes
+                     + cout * 4 + res_bytes, dtype_bytes)
+
+
+def roofline_report(measured_ms: Dict[str, Tuple[float, float]]) -> str:
+    """Format 'measured vs floor' lines given {kernel_name: (ms, floor_ms)}."""
+    lines = []
+    for name, (ms, floor) in measured_ms.items():
+        frac = floor / ms if ms > 0 else 0.0
+        lines.append(f"{name}: {ms:.3f} ms measured, {floor:.3f} ms floor "
+                     f"-> {100*frac:.0f}% of speed-of-light")
+    return "\n".join(lines)
