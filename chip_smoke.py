@@ -35,11 +35,20 @@ the JAX package. Phases, each of which fails the run on error:
    For conv3x3 also its tile plan (staging route, pixel tile, split-K
    factor) and its rate as a share of the peak;
 4. throughput: median and p75 per-forward time of 40 back-to-back bf16
-   forwards (CUDA events), frames/s, peak device memory; then the two
-   profile tools at ``VSRConfig()`` 540x960 (``[profile-model]``: first,
-   before any profile has run in the process, the host cost of a
-   ``record_function`` range and the forward with and without the four
-   newest ranges in turns; every stage of ``tools/profile_model.py``, each
+   forwards (CUDA events), frames/s, peak device memory; then
+   ``[bench]``: the headline bench as a user types it, ``python -m
+   video_super_resolution_tpu_torch.bench`` and ``... --train`` at their
+   defaults (540x960, frames 16), each in its own process with the
+   kernels' build cache already warm: each last line's metric
+   (``frames_per_sec_per_chip_540x960_to_x4``,
+   ``train_steps_per_sec_b4_crop64``) and unit, a finite value > 0,
+   ``device`` the card's nvidia-smi name and power limit, the serving
+   ``out_shape`` (1, 2160, 3840, 3), and each line's launches a frame or
+   a step, phase 2's (conv3x3 59, correlation 4, warp 4); the bench's 1000 / value printed
+   beside the throughput median above; then the two profile tools at
+   ``VSRConfig()`` 540x960 (``[profile-model]``: first, before any
+   profile has run in the process, the host cost of a ``record_function``
+   range and the forward with and without the four newest ranges in turns; every stage of ``tools/profile_model.py``, each
    JAX stage name present, each ms finite and > 0; the forward and a
    launch's host cost again after the profiles. ``[profile-prefix]``:
    ``tools/profile_prefix.py``, each JAX prefix name present, the stage
@@ -183,7 +192,9 @@ A/B runs, the roofline and the kernel tools with their times,
 ``dispatch_launches`` each dispatch control, ``scaling_launches`` each
 rank of each N,
 ``roofline_launches`` (conv3x3) the roofline's ``k1_`` rows,
-``bench_conv_launches`` and ``bench_warp_launches`` the two kernel tools'
+``bench_launches`` the headline bench's launches a serving frame and a
+train step, ``bench_conv_launches`` and ``bench_warp_launches`` the two
+kernel tools'
 runs, ``model_ab_launches`` each A/B variant's timed forwards,
 ``parallel_stream_launches`` the world-size-1 8-frame ``stream_upscale``,
 ``parallel_mode_launches`` each mode at world size 1 and on each of the 2
@@ -1881,6 +1892,73 @@ def phase_kernel_vs_library(kernels, seen, counts):
     return {"launches": launches, "specs": rows, "calls": calls}
 
 
+# ------------------------------------------------------- the headline bench
+
+BENCH_TIMEOUT_S = 300           # each bench process
+# line: (arguments, metric, unit) at JAX's defaults (540x960, frames 16)
+BENCH_LINES = {"serving": ([], "frames_per_sec_per_chip_540x960_to_x4",
+                           "frames/s/chip"),
+               "train": (["--train"], "train_steps_per_sec_b4_crop64",
+                         "steps/s")}
+
+
+def run_bench(argv):
+    """``python -m video_super_resolution_tpu_torch.bench`` with ``argv``
+    from the repo root: its last line as a dict and its wall seconds."""
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-m", "video_super_resolution_tpu_torch.bench",
+         *argv], cwd=ROOT, capture_output=True, text=True,
+        timeout=BENCH_TIMEOUT_S)
+    lines = p.stdout.strip().splitlines()
+    if p.returncode != 0 or not lines:
+        raise AssertionError(f"[bench] {argv}: rc {p.returncode}; stderr "
+                             f"{p.stderr[-3000:]}")
+    return json.loads(lines[-1]), time.perf_counter() - t0
+
+
+def phase_bench(card, serving, counts):
+    """The headline bench as a user runs it, one process a line: each
+    line's metric and unit, a finite value > 0, ``device`` the card's
+    nvidia-smi name and power limit; the serving line's ``out_shape``
+    (phase 2's); each line's launches, a frame and a step, those of phase
+    2's forward (``counts``: K1 / K3 / K4 59 / 4 / 4; the train step's
+    backward launches none of them). Beside the
+    serving line the bench's 1000 / value and phase 4's back-to-back
+    median, printed only: no check rests on run-to-run noise. Returns
+    each line's launches (a frame, a step)."""
+    recs, bad = {}, []
+    for name, (argv, metric, unit) in BENCH_LINES.items():
+        rec, wall = run_bench(argv)
+        recs[name] = rec
+        log(f"[bench] {name} ({wall:.1f} s, its process): {json.dumps(rec)}")
+        value = rec.get("value")
+        if (rec.get("metric"), rec.get("unit")) != (metric, unit):
+            bad.append(f"{name}: metric {rec.get('metric')!r}, unit "
+                       f"{rec.get('unit')!r}")
+        if not (isinstance(value, (int, float)) and math.isfinite(value)
+                and value > 0):
+            bad.append(f"{name}: value {value!r}")
+        if rec.get("device") != card:
+            bad.append(f"{name}: device {rec.get('device')!r} != {card!r}")
+    serve = recs["serving"]
+    if serve.get("out_shape") != [1, 4 * WINDOW[2], 4 * WINDOW[3], 3]:
+        bad.append(f"serving: out_shape {serve.get('out_shape')}")
+    for name, per in (("serving", "a frame"), ("train", "a step")):
+        if recs[name].get("launches") != counts:
+            bad.append(f"{name}: launches {per} {recs[name].get('launches')} "
+                       f"!= the forward's {counts}")
+    if bad:
+        raise AssertionError(f"[bench] {bad}")
+    log(f"[bench] serving {1000.0 / serve['value']:.3f} ms/frame by the "
+        f"bench (3 chains of 16, mean minus the pull, host clock), "
+        f"{serving['median']:.3f} ms/frame by chip_smoke's throughput "
+        f"(median of {TIMED_FORWARDS} back-to-back forwards, CUDA events); "
+        f"busy {serve['busy_ms_per_frame']:.3f} ms/frame, idle share "
+        f"{serve['idle_share']:.3f}")
+    return {name: rec["launches"] for name, rec in recs.items()}
+
+
 # ------------------------------------------------ clip, CLI and checkpoints
 
 def phase_probe():
@@ -2459,6 +2537,7 @@ def main() -> int:
     model, window, calls, counts = phase_forward(kernels, serving_config())
     rows = phase_kernels(kernels, calls, counts)
     serving = phase_throughput(model, window)
+    bench = phase_bench(card, serving, counts)
     phase_profile_model()
     phase_profile_prefix()
     have_pil, native_ok = phase_probe()
@@ -2509,6 +2588,7 @@ def main() -> int:
         row["parallel_stream_launches"] = par["stream"][name]
         row["parallel_mode_launches"] = {
             m: [c[name] for c in counts] for m, counts in par["modes"].items()}
+        row["bench_launches"] = {line: n[name] for line, n in bench.items()}
         row["bench_conv_launches"] = kvl["launches"]["bench_conv"][name]
         row["bench_warp_launches"] = kvl["launches"]["bench_warp"][name]
         row["model_ab_launches"] = {v: c[name] for v, c in

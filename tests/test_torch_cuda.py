@@ -545,3 +545,36 @@ def test_kernel_tools_on_the_card(gen):
     assert ll["launches"]["correlation"] == kk["launches"]["correlation"]
     assert ll["max_abs_diff_vs_first"] <= 5e-4
     assert kk["ms_per_frame"] > 0 and kk["device_ms_per_frame"] > 0
+
+
+# ------------------------------------------------------- the headline bench
+
+@pytest.mark.cuda
+def test_bench_serving_on_the_card(gen):
+    """``bench_serving`` at ``serving_config()`` width, 64x96: K1 / K3 / K4
+    launch 59 / 4 / 4 times a forward; each chain's sum equals the same
+    chain through the plain versions on the CPU, and one forward of the
+    bench's model on the card equals the CPU plain forward elementwise,
+    both within bf16's TOL."""
+    from video_super_resolution_tpu_torch import api, bench
+    from video_super_resolution_tpu_torch.tools.profile_prefix import make_window
+
+    args = bench.parse_args(["--h", "64", "--w", "96", "--frames", "2",
+                             "--warmup", "0"])
+    sums = []
+    rec = bench.bench_serving(args, sums=sums)
+    assert rec["launches"] == {"conv3x3": 59, "correlation": 4, "warp": 4}
+    assert rec["out_shape"] == [1, 256, 384, 3] and rec["device"] != "cpu"
+    assert rec["value"] > 0 and rec["device_ms_per_frame"] > 0
+    assert 0 < rec["busy_ms_per_frame"] and rec["idle_share"] < 1
+    cfg = bench.bench_config(args)
+    model = api.build_model(cfg, "cpu", seed=cfg.train.seed)
+    window = make_window(cfg, 64, 96)
+    want = bench.serving_chain(model, window, args.frames)
+    assert len(sums) == 1 + bench.SERVING_REPS
+    for s in sums:
+        torch.testing.assert_close(torch.tensor(s), want,
+                                   **TOL[torch.bfloat16])
+    card = api.build_model(cfg, "cuda", seed=cfg.train.seed)
+    close(api.upscale_window(card, window.cuda()).cpu(),
+          api.upscale_window(model, window), torch.bfloat16)

@@ -71,7 +71,6 @@ import torch
 from video_super_resolution_tpu_torch import api
 from video_super_resolution_tpu_torch.config import VSRConfig, serving_config
 from video_super_resolution_tpu_torch.models import common, flow_net, vsr
-from video_super_resolution_tpu_torch.ops import correlation, fused_conv, warp
 from video_super_resolution_tpu_torch.ops.fused_conv import (
     PreparedConv3x3,
     unpack_conv3x3_weight,
@@ -79,6 +78,10 @@ from video_super_resolution_tpu_torch.ops.fused_conv import (
 from video_super_resolution_tpu_torch.tools.bench_conv import conv3x3_library
 from video_super_resolution_tpu_torch.tools.bench_dispatch import sync
 from video_super_resolution_tpu_torch.tools.bench_warp import warp_library
+from video_super_resolution_tpu_torch.tools.profile_prefix import (
+    launch_counts,
+    make_window,
+)
 
 VARIANTS = ("kernel/kernel", "library/kernel", "kernel/library",
             "library/library")
@@ -156,16 +159,12 @@ def variant_forward(label: str, model: torch.nn.Module
     return forward
 
 
-def launch_counts() -> Dict[str, int]:
-    """The kernel wrappers' launch counters, by chip_smoke's names."""
-    return {"conv3x3": fused_conv.fused_conv3x3.launches,
-            "correlation": correlation.correlation.launches,
-            "warp": warp.backward_warp.launches}
-
-
-def pull_s(dev: torch.device, reps: int = 10) -> float:
-    """Mean seconds of one ``.item()`` of a trivial result on ``dev``."""
-    z = torch.zeros((8, 128), device=dev)
+def pull_s(dev: torch.device, reps: int = 10,
+           x: Optional[torch.Tensor] = None) -> float:
+    """Mean seconds of one ``.item()`` of a trivial result on ``dev``:
+    ``x.sum() * 0 + 1`` of ``x`` when given (JAX's bench pulls on its
+    window), else of an (8, 128) zero tensor."""
+    z = torch.zeros((8, 128), device=dev) if x is None else x
     (z.sum() * 0 + 1).item()
     t0 = time.perf_counter()
     for _ in range(reps):
@@ -184,6 +183,28 @@ def chain(forward: Callable, window: torch.Tensor, n: int) -> torch.Tensor:
     return total
 
 
+def timed_chain(run_chain: Callable[[], torch.Tensor], dev: torch.device
+                ) -> Tuple[float, Optional[float], Dict[str, int], float]:
+    """One chain ``run_chain()`` ended by its ``.item()``: its wall seconds,
+    its CUDA-event ms (from its first launch to its last kernel; None on
+    the CPU), the kernel launches in it and its sum."""
+    before = launch_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+    total = run_chain()
+    if dev.type == "cuda":
+        end.record()
+    value = total.item()
+    wall = time.perf_counter() - t0
+    device_ms = start.elapsed_time(end) if dev.type == "cuda" else None
+    return (wall, device_ms,
+            {k: v - before[k] for k, v in launch_counts().items()}, value)
+
+
 def run(variants: Sequence[str] = VARIANTS, h: int = 540, w: int = 960,
         batch: int = 1, window: int = 0, n: int = 8, reps: int = 6,
         device: api.Device = "cuda", cfg: Optional[VSRConfig] = None,
@@ -200,8 +221,7 @@ def run(variants: Sequence[str] = VARIANTS, h: int = 540, w: int = 960,
     if window:
         cfg = cfg.replace(model=dataclasses.replace(cfg.model, window=window))
     model = api.build_model(cfg, dev, seed=0)
-    x = torch.from_numpy(np.random.default_rng(0).random(
-        (batch, cfg.model.window, h, w, 3))).to(dev, torch.float32)
+    x = make_window(cfg, h, w, batch).to(dev)
     pull = pull_s(dev)
     emit(json.dumps({"pull_ms": pull * 1e3}))
     fwds = {label: variant_forward(label, model) for label in labels}
@@ -226,22 +246,13 @@ def run(variants: Sequence[str] = VARIANTS, h: int = 540, w: int = 960,
     launches = {label: dict.fromkeys(launch_counts(), 0) for label in labels}
     for _ in range(reps):
         for label, fwd in fwds.items():
-            before = launch_counts()
-            sync(dev)
-            t0 = time.perf_counter()
-            if dev.type == "cuda":
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-            total = chain(fwd, x, n)
-            if dev.type == "cuda":
-                end.record()
-            total.item()
-            walls[label].append(time.perf_counter() - t0)
-            if dev.type == "cuda":
-                device_ms[label].append(start.elapsed_time(end))
-            for k, v in launch_counts().items():
-                launches[label][k] += v - before[k]
+            wall, ms, launched, _ = timed_chain(
+                lambda: chain(fwd, x, n), dev)
+            walls[label].append(wall)
+            if ms is not None:
+                device_ms[label].append(ms)
+            for k, v in launched.items():
+                launches[label][k] += v
     lines = []
     for label in labels:
         ts = walls[label]

@@ -338,10 +338,12 @@ def profiled(fn: Callable[[], object], n: int, dev: torch.device):
                           f"lead (trace {i + 2} of {TRACES})")
 
 
-def make_window(cfg: VSRConfig, h: int, w: int) -> torch.Tensor:
-    """The (1, T, h, w, 3) f32 window of the JAX tools (``default_rng(0)``)."""
+def make_window(cfg: VSRConfig, h: int, w: int, batch: int = 1
+                ) -> torch.Tensor:
+    """The (batch, T, h, w, 3) f32 window of the JAX tools and bench
+    (``default_rng(0)``)."""
     rng = np.random.default_rng(0)
-    return torch.from_numpy(rng.random((1, cfg.model.window, h, w, 3))
+    return torch.from_numpy(rng.random((batch, cfg.model.window, h, w, 3))
                             ).to(torch.float32)
 
 
