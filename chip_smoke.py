@@ -53,14 +53,19 @@ the JAX package. Phases, each of which fails the run on error:
    launch's host cost again after the profiles. ``[profile-prefix]``:
    ``tools/profile_prefix.py``, each JAX prefix name present, the stage
    deltas plus glue within 1 % of the trace's device busy); then the
-   probe (below) and the host-path, scaling and ceiling tools at
-   ``VSRConfig()``:
+   probe and ``[png]`` (below) and the host-path, scaling and ceiling
+   tools at ``VSRConfig()``:
    - ``[dispatch]``: ``tools/bench_dispatch.py`` at ``--steps 20 --k 4``
      on its PNG clips: every control finite and > 0, each launching every
-     kernel (counts set to 0 before each control, read after);
+     kernel (counts set to 0 before each control, read after); the fed
+     controls on the native loader (the record's ``loader``);
    - ``[loader]``: ``tools/bench_loader.py`` at ``--warmup 10 --steps
-     20``, ``--loader native`` when the probe found png.h, else ``--loader
-     python``; the record's ``loader`` must be the one asked for;
+     20``, three runs, each record's ``loader`` the one asked for:
+     ``--loader native`` (frame cache on; the loader alone over
+     LOADER_ALONE_NATIVE batches, so the cache is warm), the ``--loader
+     python`` control, and ``--loader native`` cold
+     (``VSR_LOADER_CACHE_MB=0`` set before the loader is created, so
+     every sample decodes and degrades);
    - ``[scaling]``: ``tools/bench_scaling.py`` at ``--sizes 1,2``,
      272x480, 2 frames a rank (ranks sharing cuda:0 over gloo): every
      rank launches every kernel; the N = 2 streamed frames against the
@@ -152,13 +157,20 @@ After phase 6:
   held against its plain version in f32 and bf16, forward and backward,
   and timed as in phase 3;
 - probe (run before ``[dispatch]``): one line saying whether g++, png.h,
-  libpng16 and PIL exist; the native loader is built when g++ and png.h
-  do, and the clip and CLI phase runs when PIL does (it reads and writes
-  PNGs);
+  libpng16 and PIL exist; the native loader needs g++ alone (its PNG
+  decoder is the port's own, ``csrc/png_decode.h``), and the run fails
+  without it; the clip and CLI phase runs when PIL does (it reads and
+  writes PNGs);
+- ``[png]`` (right after the probe): PNGs that PIL writes (RGB, RGBA, L,
+  P with transparency, 96x160) through the port's decoder, each
+  bit-equal to PIL's bytes x float32(1/255) (the C code's ``byte *
+  (1/255.f)``; PIL is the only oracle on the card, which has no libpng);
+  then ``tools/bench_png.py`` on two 1080x1920 frames: the port and PIL
+  decoding them, bit-equal, ms a frame on the host;
 - clip and CLI: a 5-frame 540x960 PNG clip through ``api.upscale_clip``,
   which must equal ``eval_step`` on each window (frames/s); ``cli train``
   at ``VSRConfig()`` for 20 steps on HR-only 256x256 PNG clips (its log's
-  ``native_loader`` must be 1 when the native loader is buildable, else 0;
+  ``native_loader`` must be 1: compact batches, uint8 HR and bf16 LR;
   steps/s beside phase 6's in-memory loop), ``cli eval`` and ``cli infer``
   (5 PNGs of 3840x2160) on its checkpoint, ``cli import-weights`` on a
   saved state_dict;
@@ -1613,6 +1625,8 @@ DISPATCH_STEPS, DISPATCH_K = 20, 4
 DISPATCH_WARM = 2               # warm steps a Python-loop control (JAX: 20-40)
 LOADER_WARMUP, LOADER_STEPS = 10, 20
 LOADER_ALONE = (2, 8)           # loader-alone batches skipped, timed (JAX: 10, 200)
+LOADER_ALONE_NATIVE = (200, 200)    # the cache warm (JAX's 200 timed)
+LOADER_ALONE_COLD = (2, 40)
 SCALING_SIZES = (1, 2)
 SCALING_HW = (272, 480)         # SCALING.json's representative shape
 SCALING_FPD = 2
@@ -1625,7 +1639,8 @@ def phase_dispatch(kernels, clips):
     (each profiled trace holds every counted launch, or the tool raises):
     every control finite and > 0; counts
     set to 0 before each control and read after, and each launches every
-    kernel. Returns the launches by control."""
+    kernel; the fed controls on the native loader. Returns the launches by
+    control."""
     from video_super_resolution_tpu_torch.tools import bench_dispatch as bd
 
     t0 = time.perf_counter()
@@ -1643,33 +1658,57 @@ def phase_dispatch(kernels, clips):
                  warm=DISPATCH_WARM, emit=lambda s: log(f"[dispatch] {s}"))
     bad = [k for k, v in rec.items() if isinstance(v, float)
            and not (math.isfinite(v) and v > 0)]
-    log(f"[dispatch] launches by control: {launches}; phase "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"[dispatch] launches by control: {launches}; fed controls on the "
+        f"{rec['loader']} loader; phase {time.perf_counter() - t0:.1f} s")
     if bad or len(launches) != 5 or min(
             n for c in launches.values() for n in c.values()) <= 0:
         raise AssertionError(f"[dispatch] bad numbers {bad} or a control "
                              f"without a kernel: {launches}")
+    if rec["loader"] != "native":
+        raise AssertionError(f"[dispatch] fed controls on {rec['loader']}")
     return launches
 
 
-def phase_loader(native_ok, clips):
-    """``tools/bench_loader.py`` at ``--warmup 10 --steps 20``, the loader
-    alone over LOADER_ALONE batches: with ``--loader native`` when the
-    probe found png.h, else ``--loader python``; the record's ``loader``
-    must be the one asked for."""
+def phase_loader(clips):
+    """``tools/bench_loader.py`` at ``--warmup 10 --steps 20``: ``--loader
+    native`` with the frame cache on, the loader alone over
+    LOADER_ALONE_NATIVE batches (the first of them fill the cache); the
+    ``--loader python`` control at the same step counts, the loader alone
+    over LOADER_ALONE batches (it runs ~2 batches/s); ``--loader native``
+    cold, with ``VSR_LOADER_CACHE_MB=0`` set before the loader is created.
+    Each record's ``loader`` must be the one asked for, its rates finite
+    and > 0. Returns the records by run."""
     from video_super_resolution_tpu_torch.tools import bench_loader as bl
 
     t0 = time.perf_counter()
-    want = "native" if native_ok else "python"
-    rec = bl.run(want, LOADER_WARMUP, LOADER_STEPS, clips, "cuda",
-                 loader_batches=LOADER_ALONE,
-                 emit=lambda s: log(f"[loader] {s}"))
-    log(f"[loader] --loader {want} (png.h {'found' if native_ok else 'absent'}"
-        f"): recorded {rec['loader']}; phase {time.perf_counter() - t0:.1f} s")
-    if rec["loader"] != want or _finite_positive(
-            [rec], ("loader_batches_per_s", "host_driven_steps_per_s",
-                    "device_side_steps_per_s")):
-        raise AssertionError(f"[loader] {rec}")
+    runs = {"native": ("native", None, LOADER_ALONE_NATIVE),
+            "python": ("python", None, LOADER_ALONE),
+            "native cold": ("native", "0", LOADER_ALONE_COLD)}
+    recs = {}
+    for label, (loader, cache_mb, alone) in runs.items():
+        old = os.environ.get("VSR_LOADER_CACHE_MB")
+        if cache_mb is not None:
+            os.environ["VSR_LOADER_CACHE_MB"] = cache_mb
+        try:
+            rec = bl.run(loader, LOADER_WARMUP, LOADER_STEPS, clips, "cuda",
+                         loader_batches=alone,
+                         emit=lambda s, label=label: log(f"[loader] {label}: {s}"))
+        finally:
+            if old is None:
+                os.environ.pop("VSR_LOADER_CACHE_MB", None)
+            else:
+                os.environ["VSR_LOADER_CACHE_MB"] = old
+        if rec["loader"] != loader or _finite_positive(
+                [rec], ("loader_batches_per_s", "host_driven_steps_per_s",
+                        "device_side_steps_per_s")):
+            raise AssertionError(f"[loader] {label}: {rec}")
+        recs[label] = rec
+    log("[loader] batches/s alone; fed steps/s: " + "; ".join(
+        f"{label} {r['loader_batches_per_s']:.3f}; "
+        f"{r['host_driven_steps_per_s']:.3f}" for label, r in recs.items())
+        + f" (device-side {recs['native']['device_side_steps_per_s']:.3f}); "
+        f"phase {time.perf_counter() - t0:.1f} s")
+    return recs
 
 
 def phase_scaling():
@@ -1963,29 +2002,82 @@ def phase_bench(card, serving, counts):
 
 def phase_probe():
     """What the native loader's build and the clip/CLI phases need, on this
-    machine: one line; returns (PIL present, native loader buildable)."""
+    machine: one line; returns (PIL present, native loader buildable).
+    The native loader needs g++ alone; png.h and libpng16 are shown for
+    the record (the port uses neither)."""
     import ctypes.util
     import importlib.util
     import shutil
 
     from video_super_resolution_tpu_torch.data import native_loader
 
+    gxx = shutil.which("g++")
+    png_h = "not checked (no g++)" if not gxx else subprocess.run(
+        [gxx, "-E", "-x", "c++", "-", "-o", os.devnull],
+        input="#include <png.h>\n", capture_output=True,
+        text=True).returncode == 0
     missing = native_loader.missing()
-    gxx = shutil.which("g++") is not None
-    have = {"g++": gxx,
-            "png.h": "not checked (no g++)" if not gxx else not missing,
+    have = {"g++": gxx is not None, "png.h": png_h,
             "libpng16": ctypes.util.find_library("png16") is not None,
             "PIL": importlib.util.find_spec("PIL") is not None}
     log("[probe] " + ", ".join(
         f"{k}: {v if isinstance(v, str) else ('yes' if v else 'no')}"
         for k, v in have.items())
         + "; native loader "
-        + ("buildable" if not missing else
-           f"unavailable (missing {', '.join(missing)}): the CLI trains on "
-           f"the Python loader")
+        + ("buildable (g++ and the C++ standard library)" if not missing else
+           f"unavailable (missing {', '.join(missing)})")
         + ("; clip and CLI phases run" if have["PIL"] else
            "; clip and CLI phases not run (no PIL to read and write PNGs)"))
     return have["PIL"], not missing
+
+
+PNG_SMALL = (96, 160)
+PNG_BENCH = {"frames": 2, "h": 1080, "w": 1920, "reps": 3}
+
+
+def phase_png(tmp):
+    """The port's PNG decoder (``data/native_loader.decode_png``, the
+    decoder of ``csrc/png_decode.h``) on PNGs that PIL writes: RGB, RGBA,
+    L and P with a transparent index, each bit-equal to PIL's bytes x
+    float32(1/255), the C code's ``byte * (1/255.f)``; then
+    ``tools/bench_png.py`` on 1080x1920 frames (PNG_BENCH): the port and
+    PIL, bit-equal, ms a frame on the host."""
+    import numpy as np
+    from PIL import Image
+
+    from video_super_resolution_tpu_torch.data import native_loader
+    from video_super_resolution_tpu_torch.data.synthetic import detail_clip
+    from video_super_resolution_tpu_torch.tools import bench_png
+
+    t0 = time.perf_counter()
+    inv = np.float32(1.0 / 255.0)
+    h, w = PNG_SMALL
+    rgb = (detail_clip(1, h, w, seed=3)[0] * 255.0 + 0.5).astype(np.uint8)
+    alpha = np.linspace(0, 255, w, dtype=np.uint8)[None, :, None].repeat(h, 0)
+    images = {"RGB": Image.fromarray(rgb),
+              "RGBA": Image.fromarray(np.concatenate([rgb, alpha], -1), "RGBA"),
+              "L": Image.fromarray(rgb).convert("L"),
+              "P+tRNS": Image.fromarray(rgb).quantize(colors=64)}
+    bad = []
+    for name, im in images.items():
+        path = os.path.join(tmp, f"{name}.png")
+        im.save(path, **({"transparency": 3} if name == "P+tRNS" else {}))
+        got = native_loader.decode_png(path)
+        with Image.open(path) as back:
+            want = np.asarray(back.convert("RGB")) * inv
+        equal = got.shape == want.shape and np.array_equal(got, want)
+        log(f"[png] {name} {h}x{w}: {got.shape}, bit-equal to PIL: {equal}")
+        if not equal:
+            bad.append(name)
+    rec = bench_png.run(**PNG_BENCH, root=os.path.join(tmp, "bench"),
+                        emit=lambda s: log(f"[png] bench_png: {s}"))
+    ms = rec["ms_per_frame"]
+    log(f"[png] {rec['h']}x{rec['w']}, {rec['bytes_per_frame']} bytes a file: port "
+        f"{ms['port']:.3f} ms/frame, PIL {ms['pil']:.3f} (host {rec['host']}); "
+        f"bit-equal: {rec['equal']}; phase {time.perf_counter() - t0:.1f} s")
+    if bad or not rec["equal"]:
+        raise AssertionError(f"[png] decodes differ from PIL: {bad}, "
+                             f"bench_png equal: {rec['equal']}")
 
 
 def write_clip(directory, frames):
@@ -2008,12 +2100,12 @@ def cli_json(argv):
     return json.loads(buf.getvalue()) if buf.getvalue().strip() else None
 
 
-def phase_clip_cli(tmp, train_sps, native_ok):
+def phase_clip_cli(tmp, train_sps):
     """A 5-frame 540x960 PNG clip through ``api.upscale_clip`` (equal to
     ``eval_step`` on each window) and ``cli infer``; ``cli train`` at
-    VSRConfig() for 20 steps on HR-only 256x256 PNG clips (native loader
-    when buildable), ``cli eval`` on its checkpoint, ``cli import-weights``
-    on a saved state_dict."""
+    VSRConfig() for 20 steps on HR-only 256x256 PNG clips (the native
+    loader, whose compact batches decode on the card), ``cli eval`` on its
+    checkpoint, ``cli import-weights`` on a saved state_dict."""
     import numpy as np
     from PIL import Image
 
@@ -2064,7 +2156,7 @@ def phase_clip_cli(tmp, train_sps, native_ok):
         f"(steps 1-10 with warm-up, 11-20) against the in-memory "
         f"training.loop.train's {train_sps:.3f} steps/s (train phase); call "
         f"{secs:.1f} s")
-    if native != float(native_ok) or len(sps) != 2:
+    if native != 1.0 or len(sps) != 2:
         raise AssertionError(f"cli train log: {logs}")
 
     res = cli_json(["eval", "--hr-root", hr_root, "--ckpt-dir", ck])
@@ -2541,10 +2633,13 @@ def main() -> int:
     phase_profile_model()
     phase_profile_prefix()
     have_pil, native_ok = phase_probe()
+    if not native_ok:
+        raise AssertionError("[probe] the native loader cannot be built")
     with tempfile.TemporaryDirectory() as tools_tmp:
+        phase_png(tools_tmp)
         clips = os.path.join(tools_tmp, "clips")
         dispatch = phase_dispatch(kernels, clips)
-        phase_loader(native_ok, clips)
+        phase_loader(clips)
     scaling = phase_scaling()
     roof = phase_roofline(kernels, {k: set(calls[k]) for k in calls})
     kvl = phase_kernel_vs_library(
@@ -2565,7 +2660,7 @@ def main() -> int:
     ab = phase_ab(kernels, quality["seen"])
     with tempfile.TemporaryDirectory() as tmp:
         if have_pil:
-            phase_clip_cli(tmp, train["sps"], native_ok)
+            phase_clip_cli(tmp, train["sps"])
         phase_async_checkpoint(train["state"], train["cfg"], tmp)
         del train["state"]
         torch.cuda.empty_cache()

@@ -4,6 +4,7 @@ run, and how weights cross from the JAX package's flax param tree."""
 import ast
 import dataclasses
 import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -42,6 +43,25 @@ def test_port_never_imports_jax_or_the_jax_package(path):
     (which starts with the JAX package's) is allowed."""
     bad = [m for m in imported_modules(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.name} imports {bad}"
+
+
+HOST_SOURCES = [ROOT / "video_super_resolution_tpu_torch" / "csrc" / name
+                for name in ("vsr_dataio.cc", "png_decode.h")]
+
+
+@pytest.mark.parametrize("path", HOST_SOURCES, ids=lambda p: p.name)
+def test_native_data_path_includes_only_std_and_its_own_headers(path):
+    """The port's C++ data path (``data/native_loader.py`` builds it with
+    g++) includes C++ standard headers (``<name>``, no extension) and its
+    own headers beside it: no libpng, no zlib, nothing of the JAX
+    package's ``native/``."""
+    includes = re.findall(r'#\s*include\s*([<"])([^>"]+)', path.read_text())
+    assert includes
+    for kind, name in includes:
+        if kind == "<":
+            assert "." not in name, f"{path.name} includes <{name}>"
+        else:
+            assert (path.parent / name).is_file(), f"{path.name} includes {name}"
 
 
 def test_build_model_without_cuda_raises(monkeypatch):

@@ -238,9 +238,9 @@ def test_union_of_intervals():
 
 def test_loader_native_raises_naming_missing(monkeypatch, clip_root):
     monkeypatch.setattr(native_loader, "available", lambda: False)
-    monkeypatch.setattr(native_loader, "missing", lambda: ("png.h",))
+    monkeypatch.setattr(native_loader, "missing", lambda: ("g++",))
     with pytest.raises(RuntimeError, match="native loader not engaged "
-                       r"\(python\).*png\.h"):
+                       r"\(python\).*g\+\+"):
         bl.run("native", 1, 1, str(clip_root), "cpu", cfg=tiny_cfg(),
                clips=CLIPS, loader_batches=LOADER_BATCHES, emit=lambda s: None)
 

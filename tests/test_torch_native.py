@@ -1,14 +1,21 @@
-"""The port's binding of the native C++ data path (``data/native_loader.py``)
-against the JAX package's binding of the same source (``native/
-vsr_dataio.cc``): PNG decode, the MATLAB bicubic, and, with one worker, the
-same batches for the same seed; its build rule; and the train loop on it
-(compact batches, ``native_loader`` logged).
+"""The port's native C++ data path (``csrc/vsr_dataio.cc``, a copy of the
+JAX package's ``native/vsr_dataio.cc`` with its own PNG decoder, through
+``data/native_loader.py``) against the JAX package's binding of
+``native/vsr_dataio.cc``: PNG decode, the MATLAB bicubic, and the same
+batches for the same seed, with one worker and with several, with the
+frame cache evicting and off; its build rule (g++ and the C++ standard
+library only); and the train loop on it (compact batches or, with
+``VSR_COMPACT_TRANSFER=0``, f32; ``native_loader`` logged).
 
-Both bindings need g++ and libpng's header; the JAX one also needs
+The port's binding needs g++; the JAX one also needs libpng and
 ``native/libvsr_dataio.so``, which the test harness builds with ``make``.
 """
 
 import json
+import os
+import re
+import shutil
+import subprocess
 
 import numpy as np
 import pytest
@@ -95,6 +102,74 @@ def test_same_seed_same_batches_as_jax_binding(clip_root, jax_binding, augment):
     assert mine._handle is None
     with pytest.raises(StopIteration):
         next(mine)
+
+
+# csrc/vsr_dataio.cc:worker_main: worker w draws from seed + STEP * (w + 1)
+WORKER_SEED_STEP = 0x1234567
+
+
+def draw(binding, clips, n, **kw):
+    ld = binding.NativeClipLoader(clips, **kw)
+    try:
+        return [next(ld) for _ in range(n)]
+    finally:
+        ld.close()
+
+
+def same(a, b):
+    return np.array_equal(a["lr"], b["lr"]) and np.array_equal(a["hr"], b["hr"])
+
+
+@pytest.mark.parametrize("workers,cache_mb", [(3, None), (1, "1"), (3, "1"),
+                                              (1, "0")])
+def test_same_batches_as_jax_binding_with_workers_and_cache(
+        clip_root, jax_binding, monkeypatch, workers, cache_mb):
+    """Worker w's stream is what one worker draws from seed + STEP * w, and
+    batches reach the caller in the order the workers finish them. So each
+    batch of either binding, with ``workers`` workers, is the next batch
+    of one of those streams, drawn from the JAX binding with one worker
+    each. ``VSR_LOADER_CACHE_MB=1`` is under the clips' decoded frames, so
+    the cache evicts (its victims come from its own RNG, so the samples do
+    not change); 0 keeps nothing, so every sample decodes and degrades."""
+    if cache_mb is not None:
+        monkeypatch.setenv("VSR_LOADER_CACHE_MB", cache_mb)
+    clips = list_clips(str(clip_root))
+    frames = sum(len(v) for v in clips.values())
+    assert frames * (96 * 96 + 24 * 24) * 3 * 4 > 1 << 20      # 1 MiB evicts
+    kw = dict(window=3, scale=4, crop_size=16, batch_size=2, augment=True)
+    n, seed = 8, 11
+    streams = [draw(jax_binding, clips, n, num_workers=1,
+                    seed=seed + WORKER_SEED_STEP * w, **kw)
+               for w in range(workers)]
+    for binding in (pnative, jax_binding):
+        taken = [0] * workers
+        for b in draw(binding, clips, n, num_workers=workers, seed=seed, **kw):
+            w = next((w for w in range(workers)
+                      if taken[w] < n and same(b, streams[w][taken[w]])), None)
+            assert w is not None, f"{binding.__name__}: a batch of no stream"
+            taken[w] += 1
+        assert sum(taken) == n
+
+
+def test_build_uses_gxx_and_the_standard_library_only():
+    """native/Makefile's CXXFLAGS; no libpng or zlib on the link line, in
+    the port's sources, in what g++ includes, or in what the library
+    loads; both sources inside the port package."""
+    make = (pnative._PKG.parent / "native" / "Makefile").read_text()
+    assert pnative.CXXFLAGS == re.search(r"CXXFLAGS \?= (.*)", make)[1].split()
+    assert pnative.LDFLAGS == ["-shared", "-lpthread"]
+    for src in (pnative.SOURCE, pnative.HEADER):
+        assert src.parent == pnative._PKG / "csrc"
+        assert not re.search(r"#\s*include\s*[<\"](png|zlib)\.h", src.read_text())
+    if not pnative.available():
+        pytest.skip(f"no g++: {pnative.missing()}")
+    deps = subprocess.run(["g++", *pnative.CXXFLAGS, "-M", str(pnative.SOURCE)],
+                          capture_output=True, text=True, check=True).stdout
+    names = {os.path.basename(d) for d in deps.replace("\\\n", " ").split()}
+    assert "png_decode.h" in names and not names & {"png.h", "zlib.h"}
+    ldd = subprocess.run([shutil.which("ldd") or "ldd", str(pnative.build())],
+                         capture_output=True, text=True, check=True).stdout
+    assert not re.search(r"libpng|libz\.", ldd), ldd
 
 
 def test_missing_tools_are_named(monkeypatch):
@@ -187,3 +262,25 @@ def test_in_memory_dataset_logs_python_loader(tmp_path):
     first = json.loads((tmp_path / "run" / "train.jsonl").read_text()
                        .splitlines()[0])
     assert first["native_loader"] == 0.0
+
+
+def test_compact_transfer_off_sends_f32(clip_root, tmp_path, monkeypatch):
+    """``VSR_COMPACT_TRANSFER=0``, as in the JAX package, sends the native
+    loader's bf16-compute batches as they come: f32 HR and LR, which the
+    bf16 train step takes as they are."""
+    seen = []
+    real_prefetch = loop.device_prefetch
+
+    def spy_prefetch(batches, device, depth=2):
+        for b in real_prefetch(batches, device, depth):
+            seen.append({k: v.dtype for k, v in b.items()})
+            yield b
+
+    monkeypatch.setattr(loop, "device_prefetch", spy_prefetch)
+    monkeypatch.setenv("VSR_COMPACT_TRANSFER", "0")
+    cfg = tiny_cfg(tmp_path / "run", "bfloat16")
+    ds = ClipDataset(hr_root=str(clip_root), crop_size=16, seed=0)
+    out = loop.train(cfg, ds, max_steps=2, device="cpu")
+    assert out["state"].step == 2
+    assert seen and all(d == {"lr": torch.float32, "hr": torch.float32}
+                        for d in seen)

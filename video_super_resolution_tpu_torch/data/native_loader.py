@@ -1,17 +1,26 @@
-"""ctypes bindings for the native C++ data path (``native/vsr_dataio.cc``),
-with the JAX package's ``data/native_loader.py`` API: libpng decode,
-MATLAB-bicubic degradation, crop/flip/window assembly and a pthread
-prefetch pool feeding bounded batches.
+"""ctypes bindings for the port's native C++ data path
+(``csrc/vsr_dataio.cc``), with the JAX package's ``data/native_loader.py``
+API: PNG decode, MATLAB-bicubic degradation, crop/flip/window assembly and
+a pthread prefetch pool feeding bounded batches.
 
-The C++ source is the repository's own, unchanged. At first use it is
-compiled with ``g++`` and the flags of ``native/Makefile`` into
+``csrc/vsr_dataio.cc`` is a copy of the JAX package's
+``native/vsr_dataio.cc``. Kept as they are: its C ABI, the bicubic weights
+and resize, the frame cache (its victim RNG, ``VSR_LOADER_CACHE_MB``),
+splitmix64, the sampling and the worker pool, so the same seed gives the
+same batches bit for bit. Replaced: the libpng decode, by the
+self-contained decoder of ``csrc/png_decode.h``, which gives the same
+bytes as the libpng transforms it replaces (but for a gray, RGB or
+palette PNG with tRNS, whose alpha it drops where the libpng reader reads
+RGBA rows as RGB) and includes nothing outside the C++ standard library;
+it refuses an interlaced PNG, as it does a corrupt one (``IOError``). So the library builds with ``g++`` alone,
+linked with ``-lpthread`` only.
+
+At first use it is compiled with ``native/Makefile``'s CXXFLAGS into
 ``_build/dataio-<hash>/libvsr_dataio.so`` inside this package
-(git-ignored), keyed
-by a hash of the source and the flags, as ``ops/_build.py`` builds the
-CUDA kernels. ``missing()`` names what the build needs and the machine
-lacks (``g++``, ``png.h``); ``available()`` is True when nothing is
-missing. With the tools present, a failed compile or link raises with
-g++'s output.
+(git-ignored), keyed by a hash of both sources and the flags, as
+``ops/_build.py`` builds the CUDA kernels. ``missing()`` names ``g++``
+where the machine lacks it; ``available()`` is True when nothing is
+missing. A failed compile or link raises with g++'s output.
 """
 
 from __future__ import annotations
@@ -30,12 +39,13 @@ from typing import Dict, Iterator, List, Tuple
 import numpy as np
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG.parent / "native" / "vsr_dataio.cc"
+SOURCE = _PKG / "csrc" / "vsr_dataio.cc"
+HEADER = _PKG / "csrc" / "png_decode.h"       # included by SOURCE
 BUILD_ROOT = _PKG / "_build"
 LIB_NAME = "libvsr_dataio.so"
-# native/Makefile's CXXFLAGS and LDFLAGS
+# native/Makefile's CXXFLAGS; its LDFLAGS without libpng and zlib
 CXXFLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall"]
-LDFLAGS = ["-shared", "-lpng", "-lz", "-lpthread"]
+LDFLAGS = ["-shared", "-lpthread"]
 
 _FP = ctypes.POINTER(ctypes.c_float)
 _lock = threading.Lock()
@@ -44,15 +54,8 @@ _lib = None
 
 @functools.lru_cache(maxsize=1)
 def missing() -> Tuple[str, ...]:
-    """What building the library needs and this machine lacks: ``g++``,
-    or ``png.h`` (libpng's header, looked up by g++'s preprocessor)."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        return ("g++",)
-    probe = subprocess.run([gxx, "-E", "-x", "c++", "-", "-o", os.devnull],
-                           input="#include <png.h>\n", capture_output=True,
-                           text=True)
-    return () if probe.returncode == 0 else ("png.h",)
+    """What building the library needs and this machine lacks: ``g++``."""
+    return () if shutil.which("g++") else ("g++",)
 
 
 def available() -> bool:
@@ -67,6 +70,7 @@ def build() -> Path:
                            f"{', '.join(missing())}")
     h = hashlib.sha256(" ".join(CXXFLAGS + LDFLAGS).encode())
     h.update(SOURCE.read_bytes())
+    h.update(HEADER.read_bytes())
     out_dir = BUILD_ROOT / ("dataio-" + h.hexdigest()[:16])
     lib_path = out_dir / LIB_NAME
     if lib_path.exists():

@@ -26,10 +26,11 @@ Two departures from the JAX tool:
   ``loader_vs_device_side`` and ``ratio_vs_device_side`` divide by it.
 - ``--loader``: ``native`` (the default) raises when the stream does not
   engage the native C++ loader, naming what ``native_loader.missing()``
-  reports, as the JAX tool asserts it; ``python`` measures
-  ``ClipDataset``'s own batches. A machine without libpng's header
-  (``png.h``) cannot build the native loader and is measured with
-  ``--loader python``, asked for explicitly, never as a silent fallback.
+  reports (it needs g++ alone), as the JAX tool asserts it; ``python``
+  measures ``ClipDataset``'s own batches, the control, asked for
+  explicitly, never as a silent fallback. ``VSR_LOADER_CACHE_MB=0`` in
+  the environment turns the native loader's frame cache off, so every
+  sample decodes and degrades (cold).
 
 ``device``: the card's ``nvidia-smi`` name and power limit, or "cpu".
 Writes ``artifacts/BENCH_loader_torch.json``.

@@ -9,7 +9,8 @@ and from the Python ``ClipDataset`` otherwise, as the JAX package's
 (1 or 0) at the start step. With the native loader and bf16 compute the
 batches travel compact: HR as uint8 (exact: the loader's HR is 8-bit PNG
 data / 255) and LR as bf16 (the model casts it to bf16 anyway), decoded
-on the device by the train step. They are sent two steps ahead: each is
+on the device by the train step; ``VSR_COMPACT_TRANSFER=0`` sends them as
+f32, as the JAX package reads the same variable (default "1"). They are sent two steps ahead: each is
 copied into pinned memory and queued with a non-blocking copy, so the
 host's work on it overlaps the steps before it. The copy itself runs on
 the compute stream, in order between steps.
@@ -26,6 +27,7 @@ checkpoints and the log; every rank restores.
 from __future__ import annotations
 
 import collections
+import os
 import time
 from typing import Callable, Dict, Iterator, Optional, Tuple
 
@@ -138,7 +140,8 @@ def train(
     logger = MetricsLogger(cfg.train.ckpt_dir, "train")
     raw, close_loader, loader_name = make_batch_stream(cfg, train_ds,
                                                        batch_size, seed)
-    if loader_name == "native" and cfg.train.compute_dtype == "bfloat16":
+    if (loader_name == "native" and cfg.train.compute_dtype == "bfloat16"
+            and os.environ.get("VSR_COMPACT_TRANSFER", "1") == "1"):
         raw = compact_batches(raw)
     batches = device_prefetch(raw, dev)
     logger.log(start_step, {"native_loader": float(loader_name == "native")})
