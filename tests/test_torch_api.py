@@ -1,5 +1,6 @@
 """The PyTorch port's boundaries: what it imports, where its entry points
-run, and how weights cross from the JAX package's flax param tree."""
+run, and how weights cross from the JAX package's flax param tree; the
+serving entry's ``record_function`` ranges and counters."""
 
 import ast
 import dataclasses
@@ -16,7 +17,12 @@ from video_super_resolution_tpu.config import serving_config as jax_serving_conf
 from video_super_resolution_tpu.models.vsr import VSRModel as JVSRModel
 
 from video_super_resolution_tpu_torch import api
-from video_super_resolution_tpu_torch.config import VSRConfig, serving_config
+from video_super_resolution_tpu_torch.config import (
+    ModelConfig,
+    TrainConfig,
+    VSRConfig,
+    serving_config,
+)
 from video_super_resolution_tpu_torch.models.common import init_params
 from video_super_resolution_tpu_torch.models.vsr import VSRModel
 from video_super_resolution_tpu_torch.weights import from_jax_params, to_jax_params
@@ -222,3 +228,111 @@ def test_init_params_matches_lecun_scale():
                     torch.Generator().manual_seed(0))
     w = m.sr_head.ResBlock_0.ConvLReLU_0.weight
     assert abs(float(w.detach().std()) * np.sqrt(64 * 9) - 1.0) < 0.05
+
+
+TINY = dict(pyramid_channels=(8, 16, 32), max_displacement=2,
+            flow_estimator_channels=(16, 12), context_channels=(16, 12),
+            depth_channels=8, depth_levels=2, fusion_channels=16,
+            sr_channels=16, sr_blocks=2, depth_res_divisor=4)
+# the serving entry's ranges: how often each runs, and its parent
+CLIP_SPANS = {"upscale_clip": ("clip", None),
+              "upscale_clip.gather": ("frame", "upscale_clip"),
+              "eval_step.upload": ("frame", "upscale_clip"),
+              "eval_step.forward": ("frame", "upscale_clip"),
+              "upscale_clip.copy_back": ("frame", "upscale_clip"),
+              "upscale_clip.stack": ("clip", "upscale_clip")}
+FRAME_ORDER = ["upscale_clip.gather", "eval_step.upload",
+               "eval_step.forward", "upscale_clip.copy_back"]
+
+
+@pytest.fixture(scope="module")
+def tiny_model():
+    cfg = VSRConfig(model=ModelConfig(**TINY),
+                    train=TrainConfig(compute_dtype="float32"))
+    return api.build_model(cfg, device="cpu", seed=4)
+
+
+def clip_frames(t, h=16, w=24):
+    return np.random.default_rng(t).random((t, h, w, 3)).astype(np.float32)
+
+
+def profiled(fn, *args):
+    """fn(*args) under torch.profiler on the CPU: (its result, its host
+    events by name, each as sorted (start, end) pairs)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn(*args)
+    by = {}
+    for e in prof.events():
+        by.setdefault(e.name, []).append((e.time_range.start,
+                                          e.time_range.end))
+    return out, {k: sorted(v) for k, v in by.items()}
+
+
+@pytest.mark.parametrize("t", [3, 5])
+def test_upscale_clip_spans_nest_and_count(tiny_model, t):
+    """One ``upscale_clip`` range a clip holds the clip's stack and, a
+    frame each and in this order, the gather, the upload, the forward and
+    the copy back; the output is the unprofiled call's, bit for bit."""
+    frames = clip_frames(t)
+    plain = api.upscale_clip(tiny_model, frames)
+    out, spans = profiled(api.upscale_clip, tiny_model, frames)
+    assert out.dtype == plain.dtype and np.array_equal(out, plain)
+    for name, (once_per, _) in CLIP_SPANS.items():
+        assert len(spans.get(name, [])) == (1 if once_per == "clip" else t), name
+    (clip,) = spans["upscale_clip"]
+    for name, (_, parent) in CLIP_SPANS.items():
+        if parent:
+            assert all(clip[0] <= s <= e <= clip[1] for s, e in spans[name]), name
+    seq = sorted((s, e, n) for n in FRAME_ORDER for s, e in spans[n])
+    assert [n for _, _, n in seq] == FRAME_ORDER * t
+    assert all(a[1] <= b[0] for a, b in zip(seq, seq[1:]))
+    assert seq[-1][1] <= spans["upscale_clip.stack"][0][0]
+
+
+def test_eval_step_spans_hold_the_model(tiny_model):
+    """A direct ``eval_step`` call runs one upload and one forward range,
+    the model's own ranges inside the forward."""
+    lr = torch.from_numpy(clip_frames(3)[None])
+    out, spans = profiled(api.eval_step, tiny_model, lr)
+    assert torch.equal(out, api.eval_step(tiny_model, lr))
+    assert len(spans["eval_step.upload"]) == len(spans["eval_step.forward"]) == 1
+    assert "upscale_clip" not in spans
+    (up,), (fwd,) = spans["eval_step.upload"], spans["eval_step.forward"]
+    assert up[1] <= fwd[0]
+    for stage in ("flow", "depth", "fusion", "sr"):
+        assert all(fwd[0] <= s <= e <= fwd[1] for s, e in spans[stage]), stage
+
+
+@pytest.mark.parametrize("t", [3, 5])
+@pytest.mark.parametrize("under_profiler", [False, True])
+def test_upscale_clip_counts_frames_and_bytes(tiny_model, t, under_profiler):
+    h, w = 16, 24
+    frames, bytes_back = api.upscale_clip.frames, api.upscale_clip.bytes_back
+    if under_profiler:
+        out, _ = profiled(api.upscale_clip, tiny_model, clip_frames(t, h, w))
+    else:
+        out = api.upscale_clip(tiny_model, clip_frames(t, h, w))
+    assert out.shape == (t, 4 * h, 4 * w, 3)
+    assert api.upscale_clip.frames - frames == t
+    assert api.upscale_clip.bytes_back - bytes_back == t * 16 * h * w * 3 * 4
+
+
+def test_upscale_clip_frees_each_frame_before_the_next_forward(tiny_model,
+                                                               monkeypatch):
+    """The entry holds no frame's output or window across the next
+    frame's forward: device memory peaks as without its ranges."""
+    import weakref
+
+    real, held = api.eval_step, []
+
+    def eval_step(model, lr):
+        assert all(r() is None for r in held)
+        out = real(model, lr)
+        held[:] = [weakref.ref(lr), weakref.ref(out)]
+        return out
+
+    monkeypatch.setattr(api, "eval_step", eval_step)
+    out = api.upscale_clip(tiny_model, clip_frames(4))
+    assert out.shape[0] == 4 and all(r() is None for r in held)

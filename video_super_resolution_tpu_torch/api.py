@@ -11,6 +11,16 @@
 - ``stream_upscale``: a clip through the time (and space) sharded
   streaming program over a mesh (``parallel/streaming.py``).
 
+``upscale_clip`` and ``eval_step`` run inside ``torch.profiler``
+``record_function`` ranges, one request's host work under one
+``upscale_clip`` range: ``upscale_clip.gather`` (a frame's window on the
+host), ``eval_step.upload``, ``eval_step.forward`` (the host's issue of the
+model and the clamp; the model's own ranges nest inside),
+``upscale_clip.copy_back`` (the wait for the frame and its copy to the
+host) and ``upscale_clip.stack``. Without an active profiler a range costs
+a few us. ``upscale_clip.frames`` and ``upscale_clip.bytes_back`` count the
+HR frames returned and their bytes copied to the host, profiler or not.
+
 They run on the CUDA device unless the caller passes ``device="cpu"``;
 without a GPU a CUDA request raises instead of running on the CPU.
 """
@@ -21,6 +31,7 @@ from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from video_super_resolution_tpu_torch.config import VSRConfig
 from video_super_resolution_tpu_torch.data.dataset import sliding_window_indices
@@ -69,22 +80,45 @@ def upscale_window(model: VSRModel, window: torch.Tensor,
 @torch.no_grad()
 def eval_step(model: VSRModel, lr: torch.Tensor) -> torch.Tensor:
     """Forward, f32 prediction clipped to [0, 1]."""
-    pred = model(lr.to(_device_of(model)))
-    return pred.to(torch.float32).clamp(0.0, 1.0)
+    with record_function("eval_step.upload"):
+        lr = lr.to(_device_of(model))
+    with record_function("eval_step.forward"):
+        pred = model(lr)
+        del lr
+        return pred.to(torch.float32).clamp(0.0, 1.0)
 
 
 def upscale_clip(model: VSRModel, frames: Union[np.ndarray, torch.Tensor],
                  edge_mode: str = "replicate") -> np.ndarray:
     """(T, h, w, 3) frames -> (T, h*scale, w*scale, 3) f32 in [0, 1]: frame
     c is ``eval_step`` of the window ``sliding_window_indices(T, c, window,
-    edge_mode)`` around it, as the JAX package's ``upscale_clip``."""
-    frames = torch.as_tensor(frames)
-    t = frames.shape[0]
-    outs = []
-    for c in range(t):
-        idx = sliding_window_indices(t, c, model.cfg.window, edge_mode)
-        outs.append(eval_step(model, frames[idx][None])[0].cpu().numpy())
-    return np.stack(outs)
+    edge_mode)`` around it, as the JAX package's ``upscale_clip``. Its
+    per-frame buffers are freed inside its ``upscale_clip`` range."""
+    with record_function("upscale_clip"):
+        frames = torch.as_tensor(frames)
+        t = frames.shape[0]
+        outs = []
+        for c in range(t):
+            with record_function("upscale_clip.gather"):
+                idx = sliding_window_indices(t, c, model.cfg.window, edge_mode)
+                lr = frames[idx][None]
+            # each buffer is dropped as soon as it is used: the device frame
+            # before the next frame's forward allocates its own
+            hr = eval_step(model, lr)
+            del lr
+            with record_function("upscale_clip.copy_back"):
+                outs.append(hr[0].cpu().numpy())
+            del hr
+            upscale_clip.frames += 1
+            upscale_clip.bytes_back += outs[-1].nbytes
+        with record_function("upscale_clip.stack"):
+            clip = np.stack(outs)
+        del outs
+    return clip
+
+
+upscale_clip.frames = 0        # HR frames returned
+upscale_clip.bytes_back = 0    # bytes of those frames copied to the host
 
 
 def build_flow_net(cfg: Optional[VSRConfig] = None, device: Device = "cuda",

@@ -6,7 +6,13 @@
   writes a Chrome trace (``trace.json``) to a directory. The model's
   stages appear in it as ``record_function`` ranges (``flow``, ``depth``,
   ``warp``, ``encode``, ``fusion``, ``sr``; ``models/vsr.py``), the
-  counterparts of the JAX package's ``jax.named_scope``s.
+  counterparts of the JAX package's ``jax.named_scope``s, and so does the
+  serving entry (``api.py``): a clip's ``upscale_clip`` range holds a
+  frame's ``upscale_clip.gather``, ``eval_step.upload``,
+  ``eval_step.forward``, ``upscale_clip.copy_back``, then the clip's
+  ``upscale_clip.stack``. Beside them two counters, profiler or not:
+  ``api.upscale_clip.frames`` (HR frames returned) and
+  ``api.upscale_clip.bytes_back`` (their bytes copied to the host).
 - ``correlation_roofline_ms`` / ``warp_roofline_ms`` /
   ``conv3x3_roofline_ms``: the least time an H100 SXM could take for the
   cost volume, the backward warp and the fused 3x3 conv, the larger of
