@@ -23,6 +23,7 @@ from video_super_resolution_tpu_torch.config import (
     VSRConfig,
     serving_config,
 )
+from video_super_resolution_tpu_torch.data.dataset import sliding_window_indices
 from video_super_resolution_tpu_torch.models.common import init_params
 from video_super_resolution_tpu_torch.models.vsr import VSRModel
 from video_super_resolution_tpu_torch.weights import from_jax_params, to_jax_params
@@ -239,10 +240,10 @@ CLIP_SPANS = {"upscale_clip": ("clip", None),
               "upscale_clip.gather": ("frame", "upscale_clip"),
               "eval_step.upload": ("frame", "upscale_clip"),
               "eval_step.forward": ("frame", "upscale_clip"),
-              "upscale_clip.copy_back": ("frame", "upscale_clip"),
-              "upscale_clip.stack": ("clip", "upscale_clip")}
+              "upscale_clip.stage": ("frame", "upscale_clip"),
+              "upscale_clip.copy_back": ("frame", "upscale_clip")}
 FRAME_ORDER = ["upscale_clip.gather", "eval_step.upload",
-               "eval_step.forward", "upscale_clip.copy_back"]
+               "eval_step.forward", "upscale_clip.stage"]
 
 
 @pytest.fixture(scope="module")
@@ -272,23 +273,53 @@ def profiled(fn, *args):
 
 @pytest.mark.parametrize("t", [3, 5])
 def test_upscale_clip_spans_nest_and_count(tiny_model, t):
-    """One ``upscale_clip`` range a clip holds the clip's stack and, a
-    frame each and in this order, the gather, the upload, the forward and
-    the copy back; the output is the unprofiled call's, bit for bit."""
+    """One ``upscale_clip`` range a clip holds, a frame each and in this
+    order, the gather, the upload, the forward and the stage; each frame's
+    copy back follows its own forward, and the next frame's where there is
+    one; no range stacks the clip. The output is the unprofiled call's,
+    bit for bit."""
     frames = clip_frames(t)
     plain = api.upscale_clip(tiny_model, frames)
     out, spans = profiled(api.upscale_clip, tiny_model, frames)
     assert out.dtype == plain.dtype and np.array_equal(out, plain)
     for name, (once_per, _) in CLIP_SPANS.items():
         assert len(spans.get(name, [])) == (1 if once_per == "clip" else t), name
+    assert "upscale_clip.stack" not in spans
     (clip,) = spans["upscale_clip"]
     for name, (_, parent) in CLIP_SPANS.items():
         if parent:
             assert all(clip[0] <= s <= e <= clip[1] for s, e in spans[name]), name
-    seq = sorted((s, e, n) for n in FRAME_ORDER for s, e in spans[n])
-    assert [n for _, _, n in seq] == FRAME_ORDER * t
+    want = []
+    for c in range(t):
+        want += FRAME_ORDER + ["upscale_clip.copy_back"] * (c > 0)
+    want.append("upscale_clip.copy_back")
+    seq = sorted((s, e, n) for n in CLIP_SPANS if n != "upscale_clip"
+                 for s, e in spans[n])
+    assert [n for _, _, n in seq] == want
     assert all(a[1] <= b[0] for a, b in zip(seq, seq[1:]))
-    assert seq[-1][1] <= spans["upscale_clip.stack"][0][0]
+    fwd, back = spans["eval_step.forward"], spans["upscale_clip.copy_back"]
+    for c in range(t):
+        assert back[c][0] >= fwd[min(c + 1, t - 1)][1]
+
+
+@pytest.mark.parametrize("edge_mode", ["replicate", "reflect"])
+@pytest.mark.parametrize("t", [1, 2, 3, 5])
+def test_upscale_clip_is_the_per_frame_eval_step_stack(tiny_model, t,
+                                                       edge_mode):
+    """The clip is ``eval_step`` of each frame's window, stacked, bit for
+    bit: a fresh, writeable, C-contiguous f32 array that a later call
+    leaves as it is."""
+    frames = clip_frames(t)
+    want = np.stack([api.eval_step(tiny_model, torch.from_numpy(frames[
+        sliding_window_indices(t, c, tiny_model.cfg.window, edge_mode)][None])
+    )[0].numpy() for c in range(t)])
+    out = api.upscale_clip(tiny_model, frames, edge_mode)
+    assert out.dtype == np.float32 and out.shape == want.shape
+    assert out.flags.c_contiguous and out.flags.writeable and out.flags.owndata
+    assert np.array_equal(out, want)
+    kept = out.copy()
+    again = api.upscale_clip(tiny_model, clip_frames(t + 1, 12, 20), edge_mode)
+    assert not np.shares_memory(out, again) and np.array_equal(out, kept)
 
 
 def test_eval_step_spans_hold_the_model(tiny_model):
@@ -309,7 +340,8 @@ def test_eval_step_spans_hold_the_model(tiny_model):
 @pytest.mark.parametrize("under_profiler", [False, True])
 def test_upscale_clip_counts_frames_and_bytes(tiny_model, t, under_profiler):
     h, w = 16, 24
-    frames, bytes_back = api.upscale_clip.frames, api.upscale_clip.bytes_back
+    entry = api.upscale_clip
+    frames, bytes_back, staged = entry.frames, entry.bytes_back, entry.frames_staged
     if under_profiler:
         out, _ = profiled(api.upscale_clip, tiny_model, clip_frames(t, h, w))
     else:
@@ -317,6 +349,7 @@ def test_upscale_clip_counts_frames_and_bytes(tiny_model, t, under_profiler):
     assert out.shape == (t, 4 * h, 4 * w, 3)
     assert api.upscale_clip.frames - frames == t
     assert api.upscale_clip.bytes_back - bytes_back == t * 16 * h * w * 3 * 4
+    assert api.upscale_clip.frames_staged == staged     # no pinned buffer on the CPU
 
 
 def test_upscale_clip_frees_each_frame_before_the_next_forward(tiny_model,

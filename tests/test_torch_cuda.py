@@ -578,3 +578,53 @@ def test_bench_serving_on_the_card(gen):
     card = api.build_model(cfg, "cuda", seed=cfg.train.seed)
     close(api.upscale_window(card, window.cuda()).cpu(),
           api.upscale_window(model, window), torch.bfloat16)
+
+
+# ------------------------------------------------------- the serving entry
+
+def per_frame_route(model, frames):
+    """Each frame's ``eval_step`` copied to pageable host memory on its
+    own, then the clip stacked: the entry's route before pinned staging."""
+    import numpy as np
+
+    from video_super_resolution_tpu_torch import api
+    from video_super_resolution_tpu_torch.data.dataset import sliding_window_indices
+
+    t = len(frames)
+    return np.stack([api.eval_step(model, torch.from_numpy(frames[
+        sliding_window_indices(t, c, model.cfg.window)][None]))[0].cpu().numpy()
+        for c in range(t)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 2, 5])
+def test_upscale_clip_stages_each_frame_on_the_card(gen, t):
+    """``upscale_clip`` on the card equals the per-frame route bit for bit,
+    in two calls of other lengths and frame sizes; the first result is its
+    own array, unchanged by the second call; every frame goes through a
+    pinned buffer; device memory peaks no higher than on the per-frame
+    route."""
+    import numpy as np
+
+    from video_super_resolution_tpu_torch import api
+
+    model = api.build_model(tiny_cfg(), "cuda", seed=0)
+    rng = np.random.default_rng(t)
+    results = []
+    for n, h, w in [(t, 32, 48), (t + 1, 24, 40)]:
+        frames = rng.random((n, h, w, 3), dtype=np.float32)
+        per_frame_route(model, frames)               # warm: prepared weights
+        torch.cuda.reset_peak_memory_stats()
+        want = per_frame_route(model, frames)
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        staged = api.upscale_clip.frames_staged
+        out = api.upscale_clip(model, frames)
+        assert torch.cuda.max_memory_allocated() <= peak
+        assert api.upscale_clip.frames_staged - staged == n
+        assert out.dtype == np.float32 and out.flags.c_contiguous
+        assert out.flags.owndata and out.flags.writeable
+        assert np.array_equal(out, want)
+        results.append((out, out.copy()))
+    (first, kept), (second, _) = results
+    assert not np.shares_memory(first, second) and np.array_equal(first, kept)

@@ -11,15 +11,27 @@
 - ``stream_upscale``: a clip through the time (and space) sharded
   streaming program over a mesh (``parallel/streaming.py``).
 
+``upscale_clip`` writes each HR frame once into its slot of one clip
+array, allocated when the first frame's shape is known. On a CUDA model a
+frame goes through one of two reused pinned host buffers: its copy off the
+device is queued on the current stream behind its forward, and the host
+moves it into the clip only after it has issued the next frame's forward,
+so the copy overlaps the host's work. On a CPU model each frame is written
+straight into its slot.
+
 ``upscale_clip`` and ``eval_step`` run inside ``torch.profiler``
 ``record_function`` ranges, one request's host work under one
 ``upscale_clip`` range: ``upscale_clip.gather`` (a frame's window on the
 host), ``eval_step.upload``, ``eval_step.forward`` (the host's issue of the
 model and the clamp; the model's own ranges nest inside),
-``upscale_clip.copy_back`` (the wait for the frame and its copy to the
-host) and ``upscale_clip.stack``. Without an active profiler a range costs
-a few us. ``upscale_clip.frames`` and ``upscale_clip.bytes_back`` count the
-HR frames returned and their bytes copied to the host, profiler or not.
+``upscale_clip.stage`` (the queued copy into a pinned buffer; on the CPU
+the write into the clip) and ``upscale_clip.copy_back`` (the wait for a
+staged frame and its write into the clip; after the next frame's forward
+where there is one). Without an active profiler a range costs a few us.
+``upscale_clip.frames`` and ``upscale_clip.bytes_back`` count the HR frames
+returned and their bytes copied off the model's device, and
+``upscale_clip.frames_staged`` those that went through a pinned buffer,
+profiler or not.
 
 They run on the CUDA device unless the caller passes ``device="cpu"``;
 without a GPU a CUDA request raises instead of running on the CPU.
@@ -97,7 +109,23 @@ def upscale_clip(model: VSRModel, frames: Union[np.ndarray, torch.Tensor],
     with record_function("upscale_clip"):
         frames = torch.as_tensor(frames)
         t = frames.shape[0]
-        outs = []
+        if t == 0:
+            raise ValueError("upscale_clip needs at least one frame")
+        dev = _device_of(model)
+        staged = dev.type == "cuda"
+        stream = torch.cuda.current_stream(dev) if staged else None
+        clip = slots = None
+        done = [None, None]          # a staged frame's copy-finished event
+
+        def drain(c: int) -> None:
+            with record_function("upscale_clip.copy_back"):
+                if staged:
+                    done[c % 2].synchronize()
+                    torch.from_numpy(clip[c]).copy_(slots[c % 2])
+                    upscale_clip.frames_staged += 1
+            upscale_clip.frames += 1
+            upscale_clip.bytes_back += clip[c].nbytes
+
         for c in range(t):
             with record_function("upscale_clip.gather"):
                 idx = sliding_window_indices(t, c, model.cfg.window, edge_mode)
@@ -106,19 +134,31 @@ def upscale_clip(model: VSRModel, frames: Union[np.ndarray, torch.Tensor],
             # before the next frame's forward allocates its own
             hr = eval_step(model, lr)
             del lr
-            with record_function("upscale_clip.copy_back"):
-                outs.append(hr[0].cpu().numpy())
+            if clip is None:
+                clip = np.empty((t,) + tuple(hr.shape[1:]), np.float32)
+                if staged:
+                    slots = [torch.empty(hr.shape[1:], dtype=torch.float32,
+                                         pin_memory=True)
+                             for _ in range(min(t, 2))]
+            with record_function("upscale_clip.stage"):
+                if staged:
+                    # queued behind the forward on its stream, so the
+                    # stream reuses hr's device block only after the copy
+                    slots[c % 2].copy_(hr[0], non_blocking=True)
+                    done[c % 2] = torch.cuda.Event()
+                    done[c % 2].record(stream)
+                else:
+                    torch.from_numpy(clip[c]).copy_(hr[0])
             del hr
-            upscale_clip.frames += 1
-            upscale_clip.bytes_back += outs[-1].nbytes
-        with record_function("upscale_clip.stack"):
-            clip = np.stack(outs)
-        del outs
+            if c:
+                drain(c - 1)
+        drain(t - 1)
     return clip
 
 
-upscale_clip.frames = 0        # HR frames returned
-upscale_clip.bytes_back = 0    # bytes of those frames copied to the host
+upscale_clip.frames = 0          # HR frames returned
+upscale_clip.bytes_back = 0      # bytes of those frames copied off the device
+upscale_clip.frames_staged = 0   # of those, frames that went through a pinned buffer
 
 
 def build_flow_net(cfg: Optional[VSRConfig] = None, device: Device = "cuda",

@@ -9,10 +9,15 @@
   counterparts of the JAX package's ``jax.named_scope``s, and so does the
   serving entry (``api.py``): a clip's ``upscale_clip`` range holds a
   frame's ``upscale_clip.gather``, ``eval_step.upload``,
-  ``eval_step.forward``, ``upscale_clip.copy_back``, then the clip's
-  ``upscale_clip.stack``. Beside them two counters, profiler or not:
-  ``api.upscale_clip.frames`` (HR frames returned) and
-  ``api.upscale_clip.bytes_back`` (their bytes copied to the host).
+  ``eval_step.forward``, ``upscale_clip.stage`` (the frame's copy queued
+  into a pinned buffer; on the CPU its write into the clip) and, after
+  the next frame's forward where there is one, its
+  ``upscale_clip.copy_back`` (the wait for the staged frame and its write
+  into the clip). Beside them three counters, profiler or not:
+  ``api.upscale_clip.frames`` (HR frames returned),
+  ``api.upscale_clip.bytes_back`` (their bytes copied off the device) and
+  ``api.upscale_clip.frames_staged`` (those that went through a pinned
+  buffer).
 - ``correlation_roofline_ms`` / ``warp_roofline_ms`` /
   ``conv3x3_roofline_ms``: the least time an H100 SXM could take for the
   cost volume, the backward warp and the fused 3x3 conv, the larger of
