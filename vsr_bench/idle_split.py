@@ -30,10 +30,9 @@ from torch.profiler import record_function
 
 from vsr_bench import readers, spans, weights
 from vsr_bench import run as harness
-from vsr_bench.reference import vsr as reference
 
 INNER = ("upscale_clip.gather", "eval_step.upload", "eval_step.forward",
-         "upscale_clip.copy_back", "upscale_clip.stack")
+         "upscale_clip.stage", "upscale_clip.copy_back")
 
 
 def split_ms(t) -> dict:
@@ -87,8 +86,7 @@ def main(argv=None) -> int:
         return 0
     r, run = harness.prepare(args.workload, args.seed)
     kind = r["kind"]
-    run.weights = weights.make(reference.param_shapes(run.model), run.seed,
-                               run.device)
+    run.weights = weights.for_run(run)
     st = kind.setup(run)
     win, t = harness.measure(kind, st, args.seconds, True, run)
     metrics = {m["name"]: harness.load_metric(m["name"])(t)

@@ -16,7 +16,6 @@ from video_super_resolution_tpu_torch.ops.correlation import correlation
 from video_super_resolution_tpu_torch.ops.fused_conv import fused_conv3x3
 from video_super_resolution_tpu_torch.ops.warp import backward_warp
 from vsr_bench import weights
-from vsr_bench.reference import vsr as reference
 
 
 def vsr_config(run) -> VSRConfig:
@@ -39,13 +38,14 @@ def launches() -> Dict[str, int]:
 
 
 def control_upscale(run, window: np.ndarray) -> np.ndarray:
-    """The control in the port's place: the reference at fp8, the next
-    precision below the configuration's bf16, clipped as ``eval_step``
-    clips. window (1, T, h, w, 3) -> (sH, sW, 3)."""
+    """The control in the port's place: the run's reference at fp8, the
+    next precision below the configuration's bf16, clipped as
+    ``eval_step`` clips. window (1, T, h, w, 3) -> (sH, sW, 3)."""
+    ref = run.reference
     with torch.no_grad():
         x = torch.as_tensor(window).to(run.device)
-        out = reference.forward(run.weights, run.model, x,
-                                reference.Ops(quant=torch.float8_e4m3fn))
+        out = ref.forward(run.weights, run.model, x,
+                          ref.Ops(quant=torch.float8_e4m3fn))
         return out[0].clamp(0.0, 1.0).cpu().numpy()
 
 
@@ -58,15 +58,16 @@ def no_tf32():
 def compare_frames(run, served: Sequence[np.ndarray],
                    windows: Sequence[np.ndarray], limits: dict) -> dict:
     """The worst, over the served HR frames, of the root mean square and of
-    the largest absolute difference from the reference's frame of the same
-    window (f32, clipped to [0, 1]), each beside its limit."""
+    the largest absolute difference from the run's reference's frame of
+    the same window (f32, clipped to [0, 1]), each beside its limit."""
     no_tf32()
     rms: List[float] = []
     top: List[float] = []
     with torch.no_grad():
         for hr, window in zip(served, windows):
             x = torch.as_tensor(window).to(run.device)
-            ref = reference.forward(run.weights, run.model, x)[0].clamp(0, 1)
+            ref = run.reference.forward(run.weights, run.model, x)
+            ref = ref[0].clamp(0, 1)
             d = torch.as_tensor(hr).to(run.device) - ref
             rms.append(float(d.square().mean().sqrt()))
             top.append(float(d.abs().max()))

@@ -30,7 +30,7 @@ from video_super_resolution_tpu_torch import api
 from vsr_bench import content
 from vsr_bench.cell import Window
 from vsr_bench.kinds import _port
-from vsr_bench.reference import vsr as reference
+from vsr_bench.reference.vsr import window_indices
 
 
 @dataclasses.dataclass
@@ -73,7 +73,7 @@ def _upscale(st: State, frames: np.ndarray) -> np.ndarray:
     if run.program == "control":
         t = len(frames)
         return np.stack([_port.control_upscale(run, frames[
-            reference.window_indices(t, c, run.model["window"])][None])
+            window_indices(t, c, run.model["window"])][None])
             for c in range(t)])
     out = api.upscale_clip(st.model, frames, "replicate")
     if run.fault == "shift":          # each frame served one frame late
@@ -116,7 +116,7 @@ def check(st: State, win) -> dict:
     for i in pick:
         k, length, c, hr = kept[i]
         served.append(hr)
-        windows.append(st.pool[k][reference.window_indices(
+        windows.append(st.pool[k][window_indices(
             length, c, run.model["window"])][None])
     return _port.compare_frames(run, served, windows, run.limits)
 
@@ -125,8 +125,8 @@ def work(run):
     """One frame's forward at the cell's shapes, on the meta device."""
     from vsr_bench import roofline
 
-    tr = run.traffic
-    p = roofline.meta_params(reference.param_shapes(run.model))
+    tr, ref = run.traffic, run.reference
+    p = roofline.meta_params(ref.param_shapes(run.model))
     x = torch.empty(1, run.model["window"], tr["lr_h"], tr["lr_w"], 3,
                     device="meta")
-    return lambda ops: reference.forward(p, run.model, x, ops)
+    return lambda ops: ref.forward(p, run.model, x, ops)

@@ -126,10 +126,9 @@ def check(st: State, win: Window) -> dict:
 def work(run):
     """One frame's forward at the cell's shapes, on the meta device."""
     from vsr_bench import roofline
-    from vsr_bench.reference import vsr as reference
 
-    tr = run.traffic
-    p = roofline.meta_params(reference.param_shapes(run.model))
+    tr, ref = run.traffic, run.reference
+    p = roofline.meta_params(ref.param_shapes(run.model))
     x = torch.empty(1, run.model["window"], tr["lr_h"], tr["lr_w"], 3,
                     device="meta")
-    return lambda ops: reference.forward(p, run.model, x, ops)
+    return lambda ops: ref.forward(p, run.model, x, ops)

@@ -46,7 +46,6 @@ from vsr_bench import content, weights
 from vsr_bench.cell import Window
 from vsr_bench.kinds import _port
 from vsr_bench.reference import train as reftrain
-from vsr_bench.reference import vsr as reference
 
 launches = _port.launches
 NEGLIGIBLE = 1e-3          # of the median leaf's reference gradient
@@ -118,8 +117,8 @@ def setup(run) -> State:
     run.phases["content"] = time.perf_counter() - t
     if run.program == "control":
         # the reference at fp8 in the program's place, over the checked steps
-        observed = reference_steps(run, pool,
-                                   reference.Ops(quant=torch.float8_e4m3fn))
+        observed = reference_steps(
+            run, pool, run.reference.Ops(quant=torch.float8_e4m3fn))
         return State(run, None, None, None, pool, observed)
     t = time.perf_counter()
     cfg = _port.vsr_config(run)
@@ -178,7 +177,8 @@ def reference_steps(run, pool, ops=None) -> dict:
     _port.no_tf32()
     batches = [{k: torch.as_tensor(v).to(run.device) for k, v in b.items()}
                for b in pool[:run.traffic["checked_steps"]]]
-    r = reftrain.steps(run.weights, run.model, run.train, batches, ops)
+    r = reftrain.steps(run.reference.forward, run.weights, run.model,
+                       run.train, batches, ops)
     return {"losses": r["losses"], "grad": _norms(r["first_grad"]),
             "change": _norms(r["change"])}
 
@@ -225,15 +225,15 @@ def work(run):
     device."""
     from vsr_bench import roofline
 
-    tr, m = run.traffic, run.model
-    p = roofline.meta_params(reference.param_shapes(m), grad=True)
+    tr, m, ref = run.traffic, run.model, run.reference
+    p = roofline.meta_params(ref.param_shapes(m), grad=True)
     c = tr["crop"]
     x = torch.empty(tr["batch"], m["window"], c, c, 3, device="meta")
     y = torch.empty(tr["batch"], c * m["scale"], c * m["scale"], 3,
                     device="meta")
 
     def step(ops):
-        loss = reftrain.charbonnier(reference.forward(p, m, x, ops), y,
+        loss = reftrain.charbonnier(ref.forward(p, m, x, ops), y,
                                     run.train["charbonnier_eps"])
         return torch.autograd.grad(loss, list(p.values()))
     return step

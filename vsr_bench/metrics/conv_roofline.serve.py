@@ -9,9 +9,4 @@ from vsr_bench import readers
 
 
 def read(t):
-    if not t.on_card or not t.units:
-        return None
-    us = sum(e.dur for e in t.events if readers.CONV_KERNEL.search(e.name))
-    if us <= 0:
-        return None
-    return 100.0 * t.work()["conv_floor_ms"] * t.units / (us / 1e3)
+    return readers.conv_roofline(t)

@@ -6,7 +6,7 @@ from __future__ import annotations
 import re
 from typing import Optional
 
-from vsr_bench import roofline
+from vsr_bench import roofline, trace
 
 # device kernels that compute a convolution, whatever implements it: the
 # port's conv3x3 kernels (csrc/conv3x3.cu) and library convolutions and
@@ -14,6 +14,25 @@ from vsr_bench import roofline
 # run as a matmul plus shifted adds)
 CONV_KERNEL = re.compile(r"conv3x3|cudnn|xmma|cutlass|gemm|conv2d|fprop|"
                          r"implicit|dgrad|wgrad", re.IGNORECASE)
+
+
+def memcpy_ms(t) -> Optional[float]:
+    """ms a unit of the device's host-to-device and device-to-host copies."""
+    if not t.on_card or not t.units:
+        return None
+    return sum(e.dur for e in t.events if trace.COPY.search(e.name)) / 1e3 / t.units
+
+
+def conv_roofline(t) -> Optional[float]:
+    """% of their roofline the convolutions reach: the least time of every
+    3x3 conv of the reference's forward a unit over the device time of the
+    trace's convolution kernels (``CONV_KERNEL``) a unit."""
+    if not t.on_card or not t.units:
+        return None
+    us = sum(e.dur for e in t.events if CONV_KERNEL.search(e.name))
+    if us <= 0:
+        return None
+    return 100.0 * t.work()["conv_floor_ms"] * t.units / (us / 1e3)
 
 
 def idle_share(t) -> Optional[float]:
@@ -31,6 +50,15 @@ def mfu(t) -> Optional[float]:
         return None
     rate = t.units / t.window_s
     return 100.0 * t.work()["flops"] * rate / roofline.H100["bf16_flops"]
+
+
+def mfu_busy(t) -> Optional[float]:
+    """% of the H100's bf16 dense peak while the device is busy: the
+    reference's operations a unit over the device's busy time a unit."""
+    ms = busy_ms(t)
+    if not ms:
+        return None
+    return 100.0 * t.work()["flops"] / (ms / 1e3) / roofline.H100["bf16_flops"]
 
 
 def busy_ms(t) -> Optional[float]:

@@ -1,6 +1,7 @@
-"""Plain PyTorch reference of the train step: the forward of
-``reference/vsr.py``, the Charbonnier loss, autograd's gradients, the
-global-norm clip and Adam with its learning-rate schedule, all f32.
+"""Plain PyTorch reference of the train step: a reference's forward (the
+run's, such as ``reference/vsr.py``'s), the Charbonnier loss, autograd's
+gradients, the global-norm clip and Adam with its learning-rate schedule,
+all f32.
 
 The optimizer follows optax's conventions, which the configuration's
 training states: Adam with eps 1e-8 outside the square root, bias
@@ -14,12 +15,10 @@ norm is not below the clip.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List
 
 import numpy as np
 import torch
-
-from vsr_bench.reference import vsr
 
 
 def charbonnier(pred: torch.Tensor, target: torch.Tensor, eps: float
@@ -49,13 +48,13 @@ def learning_rate(t: dict, count: int) -> float:
     raise ValueError(f"unknown lr_schedule {kind}")
 
 
-def steps(p0: Dict[str, torch.Tensor], m: dict, t: dict,
-          batches: List[dict], ops: Optional[vsr.Ops] = None) -> dict:
-    """Train from the parameters ``p0`` on ``batches`` (each {"lr": (B, T,
-    h, w, 3), "hr": (B, H, W, 3)} f32 tensors on p0's device), one update a
-    batch. Returns the loss of each step, the gradient of the first step
-    as Adam received it (after the clip), and each parameter's change over
-    all the steps."""
+def steps(forward: Callable, p0: Dict[str, torch.Tensor], m: dict, t: dict,
+          batches: List[dict], ops=None) -> dict:
+    """Train ``forward(p, m, lr, ops)`` (a reference's) from the parameters
+    ``p0`` on ``batches`` (each {"lr": (B, T, h, w, 3), "hr": (B, H, W, 3)}
+    f32 tensors on p0's device), one update a batch. Returns the loss of
+    each step, the gradient of the first step as Adam received it (after
+    the clip), and each parameter's change over all the steps."""
     p = {k: v.detach().clone().requires_grad_(True) for k, v in p0.items()}
     mu = {k: torch.zeros_like(v) for k, v in p0.items()}
     nu = {k: torch.zeros_like(v) for k, v in p0.items()}
@@ -63,7 +62,7 @@ def steps(p0: Dict[str, torch.Tensor], m: dict, t: dict,
     eps, wd = 1e-8, t["weight_decay"]
     losses, first_grad = [], None
     for count, batch in enumerate(batches):
-        pred = vsr.forward(p, m, batch["lr"], ops)
+        pred = forward(p, m, batch["lr"], ops)
         loss = charbonnier(pred, batch["hr"], t["charbonnier_eps"])
         grads = torch.autograd.grad(loss, list(p.values()))
         g = dict(zip(p.keys(), grads))

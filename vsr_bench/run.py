@@ -6,7 +6,9 @@ The run loads the cell's configuration, traffic and limits by name, makes
 the weights and inputs from the seed, lets the traffic's kind set up the
 port and warm up every shape it will use (``setup_s``: from the process's
 start to the window's first request), measures for ``--seconds``
-(``--trace 1``: under ``torch.profiler``, for the per-layer metrics), then
+(``--trace 1``: under ``torch.profiler``, for the per-layer metrics;
+``--trace 0`` in a cell with an end-to-end metric read from the device's
+trace: under its device activity alone), then
 frees the program and checks what its timed path produced against the
 plain reference (``correct``). It refuses to run without a CUDA card, and
 fails when a module named ``jax``, ``jaxlib``, ``flax`` or
@@ -36,7 +38,6 @@ import torch  # noqa: E402
 
 from vsr_bench import roofline, trace, weights  # noqa: E402
 from vsr_bench.cell import Run, Window  # noqa: E402
-from vsr_bench.reference import vsr as reference  # noqa: E402
 
 BENCH = os.path.join(ROOT, "BENCHMARK.json")
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -77,7 +78,9 @@ def load_spec(later: bool = False) -> dict:
 
 def resolve(spec: dict, name: str) -> dict:
     """The cell ``name``'s entry, configuration, traffic, limits, kind
-    module and per-layer metrics, all found by name."""
+    module, plain reference (the module ``reference/<name>.py`` that the
+    configuration file's ``reference`` names) and per-layer metrics, all
+    found by name."""
     cells = {w["name"]: w for w in spec["workloads"]}
     if name not in cells:
         raise SystemExit(f"no workload {name!r} in BENCHMARK.json "
@@ -88,6 +91,8 @@ def resolve(spec: dict, name: str) -> dict:
     traffic = _load_json(os.path.join(HERE, "traffic", cell["traffic"] + ".json"))
     limits = _load_json(os.path.join(HERE, "limits", name + ".json"))
     kind = importlib.import_module(f"vsr_bench.kinds.{traffic['kind']}")
+    reference = importlib.import_module(
+        f"vsr_bench.reference.{config['reference']}")
     e2e = [m for m in spec["end_to_end"]
            if name in m.get("workloads", [name])]
     reported = {m["name"] for m in e2e}
@@ -95,7 +100,8 @@ def resolve(spec: dict, name: str) -> dict:
              if (name in m["workloads"] if "workloads" in m
                  else m["moves"] in reported)]
     return {"cell": cell, "config": config, "traffic": traffic,
-            "limits": limits, "kind": kind, "end_to_end": e2e,
+            "limits": limits, "kind": kind, "reference": reference,
+            "end_to_end": e2e,
             "per_layer": layer}
 
 
@@ -113,8 +119,8 @@ class Traced:
     """The traced window, as the per-layer readers see it: the device's
     kernels and copies inside the window, its device-side range spans, its
     length, the units of work done in it, and the cell's work per unit
-    (operations and the floor of its 3x3 convs) from the reference on the
-    meta device."""
+    (operations and the floor of its 3x3 convs) from the run's reference
+    on the meta device."""
 
     def __init__(self, run: Run, kind, win: Window, prof, launched: dict):
         self.run, self.kind, self.win = run, kind, win
@@ -122,8 +128,14 @@ class Traced:
         timeline = trace.device_timeline(prof) if self.on_card else []
         hosts = trace.host_events(prof)
         span = [h for h in hosts if h.name == WINDOW]
-        self.start = span[0].start if span else 0.0
-        self.end = span[0].end if span else 0.0
+        if span:
+            self.start, self.end = span[0].start, span[0].end
+        else:
+            # a device-only profile records no host range: the window is
+            # what the device ran between the spin kernels at its ends
+            work = trace.device_events(timeline)
+            self.start = min((e.start for e in work), default=0.0)
+            self.end = max((e.end for e in work), default=0.0)
         self.window_s = (self.end - self.start) / 1e6
         inside = [e for e in timeline if e.end > self.start and e.start < self.end]
         self.timeline = inside
@@ -148,8 +160,9 @@ class Traced:
         the unit's 3x3 convs} at the cell's shapes."""
         if self._work is None:
             fn = self.kind.work(self.run)
-            flops = roofline.flops(lambda: fn(reference.Ops()))
-            ops = reference.Ops(record=True)
+            ref = self.run.reference
+            flops = roofline.flops(lambda: fn(ref.Ops()))
+            ops = ref.Ops(record=True)
             fn(ops)
             compute = 2 if self.run.train["compute_dtype"] in (
                 "bfloat16", "float16") else 4
@@ -165,14 +178,19 @@ class Traced:
                                              self.start, self.end)}
 
 
-def measure(kind, state, seconds: float, traced: bool, run: Run):
-    """The kind's window, under the profiler when ``traced``."""
-    if not traced:
+def measure(kind, state, seconds: float, traced: bool, run: Run,
+            device_only: bool = False):
+    """The kind's window, under the profiler when ``traced``. With
+    ``device_only`` (a cell with an end-to-end metric read from the
+    device's trace) an untraced window on a card runs under the profiler's
+    device activity alone, which records no host op or range."""
+    card = run.device.type == "cuda"
+    if not traced and not (device_only and card):
         return kind.window(state, seconds), None
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    card = run.device.type == "cuda"
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if card else [])
+    acts = (([ProfilerActivity.CPU] if traced else [])
+            + ([ProfilerActivity.CUDA] if card else []))
     before = kind.launches()
     with profile(activities=acts) as prof:
         if card:
@@ -217,7 +235,8 @@ def prepare(name: str, seed: int, device: str = "cuda",
     run = Run(name, r["cell"], config,
               {**r["traffic"], **(traffic_overrides or {})},
               limits if limits is not None else r["limits"], seed,
-              torch.device(device), program=program, fault=fault)
+              torch.device(device), r["reference"], program=program,
+              fault=fault)
     return r, run
 
 
@@ -240,15 +259,17 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool = False, *,
         torch.cuda.reset_peak_memory_stats(run.device)
     t = time.time()
     run.phases["before_weights"] = t - t_start
-    run.weights = weights.make(reference.param_shapes(run.model), seed,
-                               run.device)
+    run.weights = weights.for_run(run)
     run.phases["weights"] = time.time() - t
     t = time.time()
     state = kind.setup(run)
     run.phases["kind_setup"] = time.time() - t
     setup_s = time.time() - t_start
 
-    win, traced_view = measure(kind, state, seconds, traced, run)
+    device_e2e = {m["name"] for m in r["end_to_end"]
+                  if m["source"] == "device_trace"}
+    win, traced_view = measure(kind, state, seconds, traced, run,
+                               device_only=bool(device_e2e))
     device = device_info(run.device)
     kind.release(state)
     if run.device.type == "cuda":
@@ -262,10 +283,17 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool = False, *,
 
     metrics = {}
     units = {m["name"]: m["unit"] for m in r["end_to_end"] + r["per_layer"]}
-    if traced_view is None:
+    if not traced:
         values = dict(win.metrics, setup_s=setup_s)
         for m in r["end_to_end"]:
-            metrics[m["name"]] = {"value": values[m["name"]], "unit": m["unit"]}
+            if m["name"] not in device_e2e:
+                value = values[m["name"]]
+            elif traced_view is not None:
+                value = load_metric(m["name"])(traced_view)
+            else:       # no card, no device trace: not measured
+                value = None
+            if value is not None:
+                metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     else:
         for m in r["per_layer"]:
             value = load_metric(m["name"])(traced_view)
@@ -275,10 +303,10 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool = False, *,
         device["window_s"] = traced_view.window_s
     out = {"correct": bool(correct), "attempted": win.attempted,
            "failed": win.failed, "metrics": metrics, "device": device}
-    if traced_view is not None:
+    if traced:
         out["breakdown"] = traced_view.breakdown()
-        if traced_view.short:
-            out["trace_short"] = traced_view.short
+    if traced_view is not None and traced_view.short:
+        out["trace_short"] = traced_view.short
     out["phases"] = run.phases
     if getattr(state, "detail", None) is not None:
         out["detail"] = state.detail

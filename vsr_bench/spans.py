@@ -2,7 +2,7 @@
 events, for the readers of the serving entry's ``record_function`` ranges
 (``api.upscale_clip`` and ``api.eval_step``: ``upscale_clip``,
 ``upscale_clip.gather``, ``eval_step.upload``, ``eval_step.forward``,
-``upscale_clip.copy_back``, ``upscale_clip.stack``). Times in us, as the
+``upscale_clip.stage``, ``upscale_clip.copy_back``). Times in us, as the
 trace's; an interval is a (start, end) pair."""
 
 from __future__ import annotations

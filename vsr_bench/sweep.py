@@ -21,7 +21,6 @@ import numpy as np
 
 from vsr_bench import run as harness
 from vsr_bench import weights
-from vsr_bench.reference import vsr as reference
 
 
 def main(argv=None) -> int:
@@ -34,8 +33,7 @@ def main(argv=None) -> int:
     r, run = harness.prepare(args.workload, args.seed,
                              spec=harness.load_spec(later=True))
     kind = r["kind"]
-    run.weights = weights.make(reference.param_shapes(run.model), run.seed,
-                               run.device)
+    run.weights = weights.for_run(run)
     st = kind.setup(run)
     for rate in (float(x) for x in args.rates.split(",")):
         run.traffic["rate_fps"] = rate

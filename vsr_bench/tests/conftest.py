@@ -18,6 +18,24 @@ SMALL = {
 }
 
 
+class EmptyProfile:
+    """A ``torch.profiler.profile`` that traced nothing, for building a
+    ``run.Traced`` to read its ``work()`` alone."""
+
+    def events(self):
+        return iter(())
+
+    class profiler:
+        class kineto_results:
+            @staticmethod
+            def events():
+                return []
+
+            @staticmethod
+            def trace_start_ns():
+                return 0
+
+
 @pytest.fixture
 def card():
     """The CUDA device; skips the test where there is none."""

@@ -7,11 +7,14 @@ them. On the card (``cuda`` marker): a run at full width on small frames,
 and the control against the limits."""
 
 import json
+import types
+from unittest import mock
 
 import pytest
 import torch
 
 from vsr_bench import run
+from vsr_bench.kinds import clip
 from vsr_bench.tests.conftest import SMALL, TINY
 
 SPEC = run.load_spec(later=True)
@@ -22,10 +25,32 @@ FAULTS = {"clip": ["shift"], "live": ["stale"],
 SEED = 2 ** 31 + 11
 
 
+class StepClock:
+    """A clock that moves ``step`` seconds a reading."""
+
+    def __init__(self, step: float):
+        self.t, self.step = 0.0, step
+
+    def perf_counter(self) -> float:
+        self.t += self.step
+        return self.t
+
+
 def tiny_run(cell, traced=False, **kw):
-    return run.run_cell(cell, SEED, 0.5, traced, device="cpu", spec=SPEC,
-                        config_overrides=TINY,
-                        traffic_overrides=SMALL[CELLS[cell]], **kw)
+    """One run at tiny sizes on the CPU. A clip cell's window reads a clock
+    that moves 0.1 s a reading, so its 0.5 s serve 4 clips however slowly a
+    loaded CPU runs them (a tiny clip takes ~0.1 s alone, seconds under four
+    test workers): the shift fault leaves each clip's last frame in place,
+    and this seed's first clip keeps its last frame, so a window of one clip
+    would compare no shifted frame."""
+    args = (cell, SEED, 0.5, traced)
+    kw = dict(device="cpu", spec=SPEC, config_overrides=TINY,
+              traffic_overrides=SMALL[CELLS[cell]], **kw)
+    if CELLS[cell] != "clip":
+        return run.run_cell(*args, **kw)
+    clock = types.SimpleNamespace(perf_counter=StepClock(0.1).perf_counter)
+    with mock.patch.object(clip, "time", clock):
+        return run.run_cell(*args, **kw)
 
 
 def test_refuses_without_a_card(monkeypatch, capsys):
@@ -41,11 +66,67 @@ def test_sound_run_is_correct(cell):
     out = tiny_run(cell)
     assert out["correct"], out["checks"]
     assert out["attempted"] > 0 and out["failed"] == 0
-    names = {m["name"] for m in run.resolve(SPEC, cell)["end_to_end"]}
+    # a CPU run reads no device trace: its device metrics are not measured
+    names = {m["name"] for m in run.resolve(SPEC, cell)["end_to_end"]
+             if m["source"] != "device_trace"}
     assert set(out["metrics"]) == names
     assert all(m["value"] > 0 for m in out["metrics"].values())
     assert list(out)[-1] == "checks"
     json.dumps(out)
+
+
+class KinetoEvent:
+    """A raw profiler event as ``trace`` reads it, times in us."""
+
+    def __init__(self, name, start, end, device=True):
+        self._name, self._start, self._end = name, start, end
+        self._type = (torch.autograd.DeviceType.CUDA if device
+                      else torch.autograd.DeviceType.CPU)
+
+    def name(self):
+        return self._name
+
+    def device_type(self):
+        return self._type
+
+    def correlation_id(self):
+        return 0
+
+    def start_ns(self):
+        return int(self._start * 1e3)
+
+    def end_ns(self):
+        return int(self._end * 1e3)
+
+    def is_user_annotation(self):
+        return False
+
+
+def test_device_only_window_lies_between_the_spins():
+    """An untraced run of a cell with a device end-to-end metric records
+    the device alone: no host range marks the window, so it is what ran
+    between the spin kernels, and ``device_ms_per_frame`` is its busy time
+    over the frames served."""
+    cell = next(w["name"] for w in SPEC["workloads"] if any(
+        m["source"] == "device_trace" and w["name"] in m["workloads"]
+        for m in SPEC["end_to_end"]))
+    r, cuda_run = run.prepare(cell, SEED, "cuda", SPEC, TINY,
+                              SMALL[CELLS[cell]])
+    events = [KinetoEvent("spin_kernel", 0, 250),
+              KinetoEvent("conv3x3_kernel", 300, 400),
+              KinetoEvent("conv3x3_kernel", 350, 500),
+              KinetoEvent("Memcpy DtoH (Device -> Pinned)", 600, 650),
+              KinetoEvent("cudaLaunchKernel", 290, 295, device=False),
+              KinetoEvent("spin_kernel", 700, 950)]
+    raw = types.SimpleNamespace(events=lambda: events, trace_start_ns=lambda: 0)
+    prof = types.SimpleNamespace(profiler=types.SimpleNamespace(
+        kineto_results=raw))
+    win = run.Window(5, 1.0, 1, 0, {"serve_fps": 5.0})
+    t = run.Traced(cuda_run, r["kind"], win, prof, {})
+    assert (t.start, t.end) == (300.0, 650.0)
+    assert t.busy_us() == pytest.approx(250.0)
+    got = run.load_metric("device_ms_per_frame")(t)
+    assert got == pytest.approx(250.0 / 1e3 / 5)
 
 
 @pytest.mark.parametrize("cell,fault", [(c, f) for c, k in CELLS.items()

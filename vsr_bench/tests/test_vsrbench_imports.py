@@ -54,3 +54,26 @@ def test_a_run_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=run.ROOT,
                          capture_output=True, text=True, check=True)
     assert out.stdout.strip() == "[]"
+
+
+HARNESS_WIDE = ["run.py", "sweep.py", "idle_split.py", "cell.py", "roofline.py",
+                "trace.py", "weights.py", "calibrate.py", "readers.py",
+                "spans.py", "content.py"]
+
+
+def reference_imports(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names
+                        if a.name.startswith("vsr_bench.reference"))
+        elif isinstance(node, ast.ImportFrom) and node.module and (
+                node.module.startswith("vsr_bench.reference")):
+            yield from (f"{node.module}.{a.name}" for a in node.names)
+
+
+@pytest.mark.parametrize("name", HARNESS_WIDE)
+def test_harness_wide_modules_reach_the_reference_through_the_run(name):
+    """Only the configuration names an architecture's reference: a module
+    every cell runs imports none (``Run.reference`` is resolved by name)."""
+    assert list(reference_imports(os.path.join(run.HERE, name))) == []

@@ -67,8 +67,9 @@ def test_train_steps_match_port():
     for b in batches:
         state, metrics = step(state, b)
         losses.append(float(metrics["loss"]))
-    r = reftrain.steps(w, m, t, [{k: torch.from_numpy(v) for k, v in b.items()}
-                                 for b in batches])
+    r = reftrain.steps(reference.forward, w, m, t,
+                       [{k: torch.from_numpy(v) for k, v in b.items()}
+                        for b in batches])
     np.testing.assert_allclose(losses, r["losses"], rtol=1e-5)
     # Adam's steps are ~lr = 1e-3 an element; where a gradient is near 0 its
     # sign, and so the element's step, rests on rounding: elements to 1e-5,

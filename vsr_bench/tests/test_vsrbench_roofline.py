@@ -5,6 +5,7 @@ import pytest
 
 from vsr_bench import roofline, run
 from vsr_bench.cell import Window
+from vsr_bench.tests.conftest import EmptyProfile
 
 SPEC = run.load_spec(later=True)
 
@@ -30,23 +31,8 @@ def test_work_repeats_exactly(cell):
     r, rn = run.prepare(cell, 1, device="cpu", spec=SPEC)
     kind = r["kind"]
     win = Window(1, 1.0, 1, 0, {})
-
-    class Empty:
-        def events(self):
-            return iter(())
-
-        class profiler:
-            class kineto_results:
-                @staticmethod
-                def events():
-                    return []
-
-                @staticmethod
-                def trace_start_ns():
-                    return 0
-
-    a = run.Traced(rn, kind, win, Empty(), {}).work()
-    b = run.Traced(rn, kind, win, Empty(), {}).work()
+    a = run.Traced(rn, kind, win, EmptyProfile(), {}).work()
+    b = run.Traced(rn, kind, win, EmptyProfile(), {}).work()
     assert a == b
     assert a["flops"] > 0 and a["conv_floor_ms"] > 0
     if r["traffic"]["kind"] in ("clip", "live"):

@@ -12,8 +12,7 @@ from vsr_bench.tests.test_vsrbench_harness import tiny_run
 from vsr_bench.trace import Event
 
 HOST_MS = {"host_ms.forward.serve": "eval_step.forward",
-           "host_ms.copy_back.serve": "upscale_clip.copy_back",
-           "host_ms.stack.serve": "upscale_clip.stack"}
+           "host_ms.copy_back.serve": "upscale_clip.copy_back"}
 DEVICE = ("idle_ms.entry.serve", "copy_back_gbps.serve")
 
 
@@ -58,10 +57,10 @@ IDLE_CASES = {
                             kernel(400, 500)],
                [("upscale_clip", 50, 300), ("upscale_clip", 250, 450),
                 ("upscale_clip", 900, 1100),
-                ("upscale_clip.stack", 0, 1000)]),
+                ("upscale_clip.stage", 0, 1000)]),
         (50 + 140 + 100) / 1e3 / 2),
     "no_spans": (traced(0, 400, 1, [kernel(0, 100)],
-                        [("upscale_clip.stack", 0, 50)]), None),
+                        [("upscale_clip.stage", 0, 50)]), None),
     "off_card": (traced(0, 400, 1, [], [("upscale_clip", 0, 400)],
                         on_card=False), None),
 }
@@ -133,13 +132,13 @@ def test_idle_split_names_every_idle_us():
     t = traced(0, 1000, 2, [kernel(100, 200), ("Memcpy DtoH", 600, 700)],
                [("upscale_clip", 0, 800), ("upscale_clip.gather", 0, 50),
                 ("eval_step.upload", 50, 100), ("eval_step.forward", 100, 300),
-                ("upscale_clip.copy_back", 300, 700),
-                ("upscale_clip.stack", 700, 780)])
+                ("upscale_clip.stage", 300, 380),
+                ("upscale_clip.copy_back", 380, 700)])
     got = idle_split.split_ms(t)
     want = {"upscale_clip.gather": 50, "eval_step.upload": 50,
-            "eval_step.forward": 100, "upscale_clip.copy_back": 300,
-            "upscale_clip.stack": 80, "upscale_clip.rest": 20, "harness": 200,
-            "sum": 800, "idle_share_x_window": 800}
+            "eval_step.forward": 100, "upscale_clip.stage": 80,
+            "upscale_clip.copy_back": 220, "upscale_clip.rest": 100,
+            "harness": 200, "sum": 800, "idle_share_x_window": 800}
     assert got == pytest.approx({k: v / 1e3 / 2 for k, v in want.items()})
 
 

@@ -24,6 +24,10 @@ def test_cell_resolves(cell):
     assert r["kind"].__name__ == "vsr_bench.kinds." + r["traffic"]["kind"]
     for fn in ("setup", "window", "release", "check", "work", "launches"):
         assert callable(getattr(r["kind"], fn))
+    assert r["reference"].__name__ == ("vsr_bench.reference."
+                                       + r["config"]["reference"])
+    for fn in ("param_shapes", "forward", "Ops"):
+        assert callable(getattr(r["reference"], fn))
     names = {m["name"] for m in r["end_to_end"]}
     assert "setup_s" in names and len(names) >= 2
     assert r["per_layer"]
@@ -67,7 +71,10 @@ def test_contract_shape():
 
 
 def test_metric_files_are_all_named():
-    named = {m["name"] for m in ALL["per_layer"]}
+    """A reader for every per-layer metric and every end-to-end metric read
+    from the device's trace, and no other."""
+    named = {m["name"] for m in ALL["per_layer"]} | {
+        m["name"] for m in ALL["end_to_end"] if m["source"] == "device_trace"}
     files = {f[:-3] for f in os.listdir(os.path.join(run.HERE, "metrics"))
              if f.endswith(".py")}
     assert named == files

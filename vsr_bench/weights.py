@@ -18,6 +18,13 @@ import torch
 BIAS_STD = 0.01
 
 
+def for_run(run) -> Dict[str, torch.Tensor]:
+    """The run's weights: every parameter its reference's ``param_shapes``
+    names at the run's configuration, drawn from the run's seed on its
+    device."""
+    return make(run.reference.param_shapes(run.model), run.seed, run.device)
+
+
 def make(shapes: Dict[str, tuple], seed: int, device: torch.device
          ) -> Dict[str, torch.Tensor]:
     """Name -> f32 tensor on ``device`` for every shape in ``shapes``."""
