@@ -25,8 +25,8 @@ def memcpy_ms(t) -> Optional[float]:
 
 def conv_roofline(t) -> Optional[float]:
     """% of their roofline the convolutions reach: the least time of every
-    3x3 conv of the reference's forward a unit over the device time of the
-    trace's convolution kernels (``CONV_KERNEL``) a unit."""
+    conv the reference records, at its kernel size, a unit over the device
+    time of the trace's convolution kernels (``CONV_KERNEL``) a unit."""
     if not t.on_card or not t.units:
         return None
     us = sum(e.dur for e in t.events if CONV_KERNEL.search(e.name))

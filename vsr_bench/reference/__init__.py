@@ -18,8 +18,17 @@ reference through the run. A reference module provides:
 - ``Ops(quant=None, record=False)``: its primitive ops. ``quant`` rounds
   the inputs of each op to a lower precision (the control of the
   correctness check); with ``record``, ``.convs`` lists ``(b, h, w, cin,
-  cout, f32)`` for every 3x3 conv the forward ran (output size, channels,
-  and whether the configured model runs it in f32), for the conv floor.
+  cout, f32)`` or ``(b, h, w, cin, cout, f32, k)`` for every conv the
+  forward ran (output size, channels, whether the configured model runs it
+  in f32, and its square kernel's size, 3 where it is left out), for the
+  conv floor;
+- optionally ``init_scale(model) -> {name: factor}``: where the
+  architecture's published init differs from the harness's seeded draw
+  (``weights.make``: LeCun-normal kernels, biases of std 0.01), the
+  factors by which ``weights.for_run`` multiplies the named tensors of
+  that draw, each beside the published rule it stands for (as BasicSR's
+  ``default_init_weights(..., 0.1)``). Every name must be one of
+  ``param_shapes``; a reference without it gets the draw unscaled.
 
 The traffic's kind supplies the rest: ``work(run)``, one unit of the cell's
 work as a function of an ``Ops``, and how its served outputs are checked.

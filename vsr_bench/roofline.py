@@ -1,7 +1,8 @@
 """The H100's datasheet peaks and the least time a kernel could take on
 it, frozen copies of ``video_super_resolution_tpu_torch/utils/profiling.py``
 (``H100``, ``_roofline``, ``conv3x3_roofline_ms``, ``correlation_roofline_ms``,
-``warp_roofline_ms``), so that a later change to the port cannot move the
+``warp_roofline_ms``; ``conv_roofline_ms`` is the 3x3 one at any square
+kernel size), so that a later change to the port cannot move the
 yardstick. Each input is read and each output written once; the peak is
 the operands' type's (989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s
 f32), the bandwidth 3.35 TB/s: NVIDIA's H100 SXM datasheet, dense rates.
@@ -50,15 +51,21 @@ def warp_roofline_ms(b: int, h: int, w: int, c: int,
                      dtype_bytes)
 
 
+def conv_roofline_ms(b: int, h: int, w: int, cin: int, cout: int, k: int,
+                     dtype_bytes: int, res_bytes: int = 0) -> Dict:
+    """k x k conv of x (B, H, W, Cin) to Cout channels at an (H, W) output,
+    + f32 bias (+ a residual of ``res_bytes`` in all): read x, the (Cout,
+    Cin, k, k) weight, the bias and the residual, write the output;
+    2 * k^2 * Cin FLOP an output element."""
+    return _roofline(2 * b * h * w * cout * k * k * cin,
+                     (b * h * w * (cin + cout) + k * k * cin * cout) * dtype_bytes
+                     + cout * 4 + res_bytes, dtype_bytes)
+
+
 def conv3x3_roofline_ms(b: int, h: int, w: int, cin: int, cout: int,
                         dtype_bytes: int, res_bytes: int = 0) -> Dict:
-    """3x3 conv of x (B, H, W, Cin) to Cout channels at an (H, W) output,
-    + f32 bias (+ a residual of ``res_bytes`` in all): read x, the (Cout,
-    Cin, 3, 3) weight, the bias and the residual, write the output;
-    2 * 9 * Cin FLOP an output element."""
-    return _roofline(2 * b * h * w * cout * 9 * cin,
-                     (b * h * w * (cin + cout) + 9 * cin * cout) * dtype_bytes
-                     + cout * 4 + res_bytes, dtype_bytes)
+    """``conv_roofline_ms`` of a 3x3 conv."""
+    return conv_roofline_ms(b, h, w, cin, cout, 3, dtype_bytes, res_bytes)
 
 
 def flops(fn: Callable[[], object]) -> int:

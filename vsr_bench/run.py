@@ -119,7 +119,7 @@ class Traced:
     """The traced window, as the per-layer readers see it: the device's
     kernels and copies inside the window, its device-side range spans, its
     length, the units of work done in it, and the cell's work per unit
-    (operations and the floor of its 3x3 convs) from the run's reference
+    (operations and the floor of its convs) from the run's reference
     on the meta device."""
 
     def __init__(self, run: Run, kind, win: Window, prof, launched: dict):
@@ -157,7 +157,8 @@ class Traced:
 
     def work(self) -> dict:
         """{"flops": operations a unit, "conv_floor_ms": the least time of
-        the unit's 3x3 convs} at the cell's shapes."""
+        every conv the reference records in a unit, each at its kernel
+        size} at the cell's shapes."""
         if self._work is None:
             fn = self.kind.work(self.run)
             ref = self.run.reference
@@ -166,9 +167,11 @@ class Traced:
             fn(ops)
             compute = 2 if self.run.train["compute_dtype"] in (
                 "bfloat16", "float16") else 4
-            floor = sum(roofline.conv3x3_roofline_ms(
-                b, h, w, cin, cout, 4 if f32 else compute)["floor_ms"]
-                for b, h, w, cin, cout, f32 in ops.convs)
+            # (b, h, w, cin, cout, f32[, k]): no k is a 3x3 conv
+            floor = sum(roofline.conv_roofline_ms(
+                b, h, w, cin, cout, k[0] if k else 3,
+                4 if f32 else compute)["floor_ms"]
+                for b, h, w, cin, cout, f32, *k in ops.convs)
             self._work = {"flops": flops, "conv_floor_ms": floor}
         return self._work
 

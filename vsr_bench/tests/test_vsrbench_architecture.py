@@ -5,6 +5,7 @@ and metric readers), and the VSR cells draw the same weights and read the
 same work as when the harness imported ``reference/vsr.py`` itself."""
 
 import json
+import subprocess
 import sys
 import time
 import types
@@ -215,3 +216,49 @@ def test_vsr_cells_draw_and_read_as_before(cell, seed):
     traced = run.Traced(rn, r["kind"], Window(1, 1.0, 1, 0, {}),
                         EmptyProfile(), {})
     assert traced.work() == parent_work(rn)
+
+
+# test_vsrbench_harness.py's cases of the cells it has run from the start,
+# which a cell added later leaves as they are
+HARNESS_IDS = [
+    "test_refuses_without_a_card",
+    "test_sound_run_is_correct[espcn.clip.540p]",
+    "test_sound_run_is_correct[two_stage_wf.clip.540p]",
+    "test_sound_run_is_correct[espcn.train.b4c64]",
+    "test_sound_run_is_correct[espcn.live.540p]",
+    "test_device_only_window_lies_between_the_spins",
+    "test_fault_is_caught[espcn.clip.540p-shift]",
+    "test_fault_is_caught[two_stage_wf.clip.540p-shift]",
+    "test_fault_is_caught[espcn.train.b4c64-unchanged]",
+    "test_fault_is_caught[espcn.train.b4c64-half_batch]",
+    "test_fault_is_caught[espcn.live.540p-stale]",
+    "test_traced_run_reports_device_window[espcn.clip.540p]",
+    "test_traced_run_reports_device_window[two_stage_wf.clip.540p]",
+    "test_traced_run_reports_device_window[espcn.train.b4c64]",
+    "test_traced_run_reports_device_window[espcn.live.540p]",
+    "test_on_card_small_frames[espcn.clip.540p]",
+    "test_on_card_small_frames[two_stage_wf.clip.540p]",
+    "test_on_card_small_frames[espcn.train.b4c64]",
+    "test_on_card_small_frames[espcn.live.540p]",
+    "test_control_fails_on_card[espcn.clip.540p]",
+    "test_control_fails_on_card[two_stage_wf.clip.540p]",
+    "test_control_fails_on_card[espcn.train.b4c64]",
+    "test_control_fails_on_card[espcn.live.540p]",
+]
+HARNESS_CELLS = ["espcn.clip.540p", "two_stage_wf.clip.540p",
+                 "espcn.train.b4c64", "espcn.live.540p"]
+
+
+def test_harness_collects_the_same_cases():
+    """The harness tests collect the same cases, in the same order, for
+    the cells they had; a cell added later adds its own cases."""
+    out = subprocess.run(
+        [sys.executable, "-m", "pytest", "--collect-only", "-q",
+         "-p", "no:cacheprovider", "-p", "no:randomly",
+         "vsr_bench/tests/test_vsrbench_harness.py"],
+        cwd=run.ROOT, capture_output=True, text=True, check=True)
+    ids = [line.split("::", 1)[1] for line in out.stdout.splitlines()
+           if "::" in line]
+    kept = [i for i in ids if "[" not in i
+            or i[i.index("[") + 1:-1].split("-")[0] in HARNESS_CELLS]
+    assert kept == HARNESS_IDS

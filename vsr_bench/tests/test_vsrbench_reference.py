@@ -16,9 +16,10 @@ from video_super_resolution_tpu_torch.training.step import make_train_step
 from vsr_bench import weights
 from vsr_bench.reference import train as reftrain
 from vsr_bench.reference import vsr as reference
-from vsr_bench.tests.conftest import TINY_MODEL
+from vsr_bench.tests import bodies
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+TINY_MODEL = bodies.load("references", "vsr.json")["model"]
 
 
 def tiny_config(name: str, **train) -> VSRConfig:

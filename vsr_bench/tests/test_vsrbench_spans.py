@@ -8,7 +8,7 @@ import types
 import pytest
 
 from vsr_bench import idle_split, run, spans, trace
-from vsr_bench.tests.test_vsrbench_harness import tiny_run
+from vsr_bench.tests import bodies
 from vsr_bench.trace import Event
 
 HOST_MS = {"host_ms.forward.serve": "eval_step.forward",
@@ -118,7 +118,9 @@ def test_interval_arithmetic():
 def test_tiny_traced_clip_run_reads_the_entry_spans():
     """On the CPU the entry's host spans are read; the device's idle time
     and copies are not there to read."""
-    out = tiny_run("espcn.clip.540p", traced=True)
+    spec = run.load_spec()
+    cell = "espcn.clip.540p"
+    out = bodies.tiny_run(spec, cell, bodies.sizes(spec, cell), traced=True)
     assert out["correct"]
     for m in HOST_MS:
         assert out["metrics"][m]["value"] > 0 and out["metrics"][m]["unit"] == "ms/frame"

@@ -5,7 +5,8 @@ The init rule is a frozen copy of
 LeCun-normal kernels (std 1/sqrt(fan_in)) and normal biases of std 0.01,
 f32 (the model keeps f32 parameters and rounds them to its compute dtype
 itself). One normal draw holds every kernel and one every bias, from a
-``torch.Generator`` on the device seeded with the run's seed.
+``torch.Generator`` on the device seeded with the run's seed. A reference
+whose published init differs scales the draw (``for_run``).
 """
 
 from __future__ import annotations
@@ -21,8 +22,19 @@ BIAS_STD = 0.01
 def for_run(run) -> Dict[str, torch.Tensor]:
     """The run's weights: every parameter its reference's ``param_shapes``
     names at the run's configuration, drawn from the run's seed on its
-    device."""
-    return make(run.reference.param_shapes(run.model), run.seed, run.device)
+    device, then each tensor that the reference's ``init_scale``, where it
+    has one, names multiplied by its factor."""
+    ref = run.reference
+    out = make(ref.param_shapes(run.model), run.seed, run.device)
+    scale = getattr(ref, "init_scale", None)
+    factors = scale(run.model) if scale is not None else {}
+    missing = sorted(set(factors) - set(out))
+    if missing:
+        raise ValueError(f"{ref.__name__}.init_scale names parameters that "
+                         f"param_shapes does not: {missing[:5]}")
+    for name, factor in factors.items():
+        out[name].mul_(factor)
+    return out
 
 
 def make(shapes: Dict[str, tuple], seed: int, device: torch.device
