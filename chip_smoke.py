@@ -1521,7 +1521,7 @@ def host_costs(model, window):
     from torch.profiler import record_function
 
     from video_super_resolution_tpu_torch import api
-    from video_super_resolution_tpu_torch.models import sr_head, vsr
+    from video_super_resolution_tpu_torch.models import graphs, sr_head, vsr
 
     reps = 20000
     t0 = time.perf_counter()
@@ -1531,18 +1531,18 @@ def host_costs(model, window):
     us = (time.perf_counter() - t0) / reps * 1e6
 
     def without(name):
-        return cl.nullcontext() if name in NEW_RANGES else record_function(name)
+        return cl.nullcontext() if name in NEW_RANGES else graphs.stage(name)
 
     def run(ranges):
         def fn():
-            vsr.record_function = sr_head.record_function = ranges
+            vsr.stage = sr_head.stage = ranges
             try:
                 api.upscale_window(model, window)
             finally:
-                vsr.record_function = sr_head.record_function = record_function
+                vsr.stage = sr_head.stage = graphs.stage
         return fn
 
-    (a, a0, a1), (b, b0, b1) = forward_turns(run(record_function), run(without))
+    (a, a0, a1), (b, b0, b1) = forward_turns(run(graphs.stage), run(without))
     launch = launch_us()
     log(f"[profile-model] host costs before any profile in this process: "
         f"{us:.3f} us a record_function range (enter + exit, no profiler, "

@@ -369,3 +369,72 @@ def test_upscale_clip_frees_each_frame_before_the_next_forward(tiny_model,
     monkeypatch.setattr(api, "eval_step", eval_step)
     out = api.upscale_clip(tiny_model, clip_frames(4))
     assert out.shape[0] == 4 and all(r() is None for r in held)
+
+
+# ------------------------------------------- the forward from CUDA graphs
+
+def graph_counts():
+    e = api.eval_step
+    return np.array([e.calls, e.replays, e.captures])
+
+
+@pytest.mark.parametrize("entry", ["eval_step", "upscale_clip"])
+def test_a_cpu_model_never_captures(tiny_model, entry):
+    """On the CPU every call runs the eager forward: ``eval_step`` counts
+    its calls, never a replay or a capture, and its output is the model's
+    clamped, whatever the call's place in a run of equal keys."""
+    from video_super_resolution_tpu_torch.models import graphs
+
+    frames = clip_frames(4)
+    before = graph_counts()
+    if entry == "eval_step":
+        lr = torch.from_numpy(frames[:3][None])
+        want = api.upscale_window(tiny_model, lr).clamp(0.0, 1.0)
+        for _ in range(3):
+            assert torch.equal(api.eval_step(tiny_model, lr), want)
+        calls = 3
+    else:
+        want = np.stack([api.upscale_window(tiny_model, torch.from_numpy(
+            frames[sliding_window_indices(4, c, 3, "replicate")][None])
+        )[0].clamp(0.0, 1.0).numpy() for c in range(4)])
+        for _ in range(2):
+            assert np.array_equal(api.upscale_clip(tiny_model, frames), want)
+        calls = 8
+    assert (graph_counts() - before).tolist() == [calls, 0, 0]
+    assert graphs.graphed(tiny_model).set is None
+    api.release_graphs(tiny_model)          # nothing to free: no error
+
+
+def test_graph_key_follows_what_the_forward_reads(tiny_model):
+    """The key a CUDA call would carry: equal for equal calls; another for
+    another shape or dtype, after an in-place weight update or with the
+    TF32 switch flipped; none with grad enabled on parameters that require
+    it, nor off CUDA."""
+    from video_super_resolution_tpu_torch.models.graphs import GraphedForward
+
+    cuda = torch.device("cuda")
+    lr = torch.zeros((1, 3, 16, 24, 3))
+    with torch.no_grad():
+        key = GraphedForward.key(tiny_model, lr, cuda)
+        assert key is not None and key == GraphedForward.key(
+            tiny_model, lr.clone(), cuda)
+        assert GraphedForward.key(tiny_model, lr[:, :, :8], cuda) != key
+        assert GraphedForward.key(tiny_model, lr.double(), cuda) != key
+        assert GraphedForward.key(tiny_model, lr, torch.device("cpu")) is None
+        tf32 = torch.backends.cudnn.allow_tf32
+        try:
+            torch.backends.cudnn.allow_tf32 = not tf32
+            assert GraphedForward.key(tiny_model, lr, cuda) != key
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        w = tiny_model.sr_head.Conv_0.weight
+        w.mul_(1.0)
+        bumped = GraphedForward.key(tiny_model, lr, cuda)
+        assert bumped != key and bumped == GraphedForward.key(tiny_model, lr, cuda)
+    with torch.enable_grad():
+        assert GraphedForward.key(tiny_model, lr, cuda) is None
+        tiny_model.requires_grad_(False)
+        try:
+            assert GraphedForward.key(tiny_model, lr, cuda) == bumped
+        finally:
+            tiny_model.requires_grad_(True)

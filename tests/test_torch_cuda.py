@@ -9,6 +9,7 @@ Tolerances: f32 rtol 1e-4 / atol 1e-4 (TF32 off, reassociation only), bf16
 rtol 2e-2 / atol 2e-2 (one bf16 rounding of the output).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -628,3 +629,160 @@ def test_upscale_clip_stages_each_frame_on_the_card(gen, t):
         results.append((out, out.copy()))
     (first, kept), (second, _) = results
     assert not np.shares_memory(first, second) and np.array_equal(first, kept)
+
+
+# ------------------------------------------- the forward from CUDA graphs
+
+def eager_clip(model, frames):
+    """Each frame's window through the model's eager forward, clamped as
+    ``eval_step`` clamps: the clip without CUDA graphs."""
+    from video_super_resolution_tpu_torch import api
+    from video_super_resolution_tpu_torch.data.dataset import sliding_window_indices
+
+    t = len(frames)
+    return np.stack([api.upscale_window(model, torch.from_numpy(frames[
+        sliding_window_indices(t, c, model.cfg.window)][None]))[0]
+        .to(torch.float32).clamp(0.0, 1.0).cpu().numpy() for c in range(t)])
+
+
+def graph_counts():
+    from video_super_resolution_tpu_torch import api
+
+    e = api.eval_step
+    return e.calls, e.replays, e.captures
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head", ["espcn", "two_stage_wf"])
+def test_graphed_upscale_clip_equals_eager(gen, head):
+    """``upscale_clip`` at full width, 68x120, 5 frames: the first frame
+    runs eagerly, the second captures, the rest replay, and a second clip
+    only replays; both clips equal the eager forward's bit for bit. The
+    replayed segments run in the model's own ranges."""
+    from video_super_resolution_tpu_torch import api
+    from video_super_resolution_tpu_torch.config import serving_config
+    from video_super_resolution_tpu_torch.models import graphs
+
+    cfg = (serving_config() if head == "espcn" else serving_config(
+        sr_head_style="two_stage", warp_features=True))
+    model = api.build_model(cfg, "cuda", seed=0)
+    frames = np.random.default_rng(5).random((5, 68, 120, 3), dtype=np.float32)
+    want = eager_clip(model, frames)
+    before = graph_counts()
+    first = api.upscale_clip(model, frames)
+    assert np.array_equal(first, want)
+    assert np.subtract(graph_counts(), before).tolist() == [5, 4, 1]
+    second = api.upscale_clip(model, frames)
+    assert np.array_equal(second, want)
+    assert np.subtract(graph_counts(), before).tolist() == [10, 9, 1]
+    paths = [s.path for s in graphs.graphed(model).set.segments]
+    for name in ("flow", "depth", "fd", "warp", "encode", "fusion"):
+        assert (name,) in paths, name
+    for name in ("sr_trunk", "sr_skip", "sr_conv"):
+        assert ("sr", name) in paths, name
+    assert all(p in [(), ("flow",), ("depth",), ("fd",), ("warp",),
+                     ("encode",), ("fusion",), ("sr", "sr_trunk"),
+                     ("sr", "sr_skip"), ("sr", "sr_conv")] for p in paths)
+
+
+@pytest.mark.cuda
+def test_graphs_recapture_after_a_weight_update(gen):
+    """An in-place weight update changes the key: the next call runs
+    eagerly on the new weights, the one after captures them anew, and both
+    equal the eager forward."""
+    from video_super_resolution_tpu_torch import api
+
+    model = api.build_model(tiny_cfg(), "cuda", seed=0)
+    lr = torch.rand((1, 3, 24, 40, 3), generator=gen.manual_seed(1),
+                    device="cuda").cpu()
+
+    def eager():
+        return api.upscale_window(model, lr).to(torch.float32).clamp(0, 1)
+
+    for _ in range(3):
+        api.eval_step(model, lr)
+    with torch.no_grad():
+        model.sr_head.Conv_0.weight.mul_(1.5)
+    want = eager()
+    c0 = graph_counts()
+    out = api.eval_step(model, lr)
+    assert np.subtract(graph_counts(), c0).tolist() == [1, 0, 0]
+    assert torch.equal(out, want)
+    out = api.eval_step(model, lr)
+    assert np.subtract(graph_counts(), c0).tolist() == [2, 1, 1]
+    assert torch.equal(out, want)
+    assert not torch.equal(out, api.eval_step(
+        api.build_model(tiny_cfg(), "cuda", seed=0), lr))
+
+
+@pytest.mark.cuda
+def test_a_new_shape_frees_the_old_graphs(gen):
+    """A call at a new LR shape frees the live set before it runs eagerly;
+    the next call at that shape captures a set for it."""
+    import weakref
+
+    from video_super_resolution_tpu_torch import api
+    from video_super_resolution_tpu_torch.models import graphs
+
+    model = api.build_model(tiny_cfg(), "cuda", seed=0)
+    run = graphs.graphed(model)
+    a, b = torch.rand((1, 3, 24, 40, 3)), torch.rand((1, 3, 16, 48, 3))
+    api.eval_step(model, a)
+    api.eval_step(model, a)
+    assert run.set is not None and run.set.key[0] == tuple(a.shape)
+    old = weakref.ref(run.set)
+    c0 = graph_counts()
+    api.eval_step(model, b)
+    assert old() is None and run.set is None
+    assert np.subtract(graph_counts(), c0).tolist() == [1, 0, 0]
+    api.eval_step(model, b)
+    assert run.set.key[0] == tuple(b.shape)
+    assert np.subtract(graph_counts(), c0).tolist() == [2, 1, 1]
+
+
+@pytest.mark.cuda
+def test_a_clip_counts_every_kernel_it_runs(gen):
+    """A clip's eager, captured and replayed frames each raise the kernel
+    wrappers' counters by one forward's launches: the capture counts
+    nothing, each replay what its segments hold."""
+    from video_super_resolution_tpu_torch import api
+    from video_super_resolution_tpu_torch.ops.correlation import correlation
+    from video_super_resolution_tpu_torch.ops.fused_conv import fused_conv3x3
+    from video_super_resolution_tpu_torch.ops.warp import backward_warp
+
+    wrappers = (fused_conv3x3, correlation, backward_warp)
+    model = api.build_model(tiny_cfg(), "cuda", seed=0)
+    frames = np.random.default_rng(2).random((6, 24, 40, 3), dtype=np.float32)
+    before = [f.launches for f in wrappers]
+    api.upscale_window(model, torch.from_numpy(frames[:3][None]))
+    per_forward = [f.launches - b for f, b in zip(wrappers, before)]
+    assert all(n > 0 for n in per_forward)
+    before = [f.launches for f in wrappers]
+    c0 = graph_counts()
+    api.upscale_clip(model, frames)
+    assert np.subtract(graph_counts(), c0).tolist() == [6, 5, 1]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == \
+        [6 * n for n in per_forward]
+
+
+@pytest.mark.cuda
+def test_release_graphs_returns_the_pool(gen):
+    """After ``release_graphs`` the device holds what it held before the
+    capture; the next call at the same key runs eagerly."""
+    from video_super_resolution_tpu_torch import api
+
+    model = api.build_model(tiny_cfg(), "cuda", seed=0)
+    lr = torch.rand((1, 3, 24, 40, 3))
+    api.eval_step(model, lr)        # eager: prepared weights, resize tables
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    out = api.eval_step(model, lr)  # captures
+    del out
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() > held
+    api.release_graphs(model)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == held
+    c0 = graph_counts()
+    api.eval_step(model, lr)
+    assert np.subtract(graph_counts(), c0).tolist() == [1, 0, 0]

@@ -35,6 +35,7 @@ from video_super_resolution_tpu.ops.warp import backward_warp as jax_backward_wa
 from video_super_resolution_tpu_torch.ops.correlation import correlation, correlation_plain
 from video_super_resolution_tpu_torch.ops.fused_conv import conv3x3_plain, fused_conv3x3
 from video_super_resolution_tpu_torch.ops.pixel_shuffle import pixel_shuffle, pixel_unshuffle
+from video_super_resolution_tpu_torch.ops import resize
 from video_super_resolution_tpu_torch.ops.resize import resize_bilinear, upsample_bilinear_ps
 from video_super_resolution_tpu_torch.ops.warp import backward_warp, warp_plain
 
@@ -75,12 +76,78 @@ def test_resize_bilinear_matches_jax(rng, shape, out):
     close(resize_bilinear(xt, *out), jax_resize_bilinear(xj, *out))
 
 
-def test_resize_bilinear_serving_depth_ratio(rng):
+@pytest.mark.parametrize("tables", ["built", "kept"])
+def test_resize_bilinear_serving_depth_ratio(rng, tables):
     """544x960 -> 136x240 takes the general-weights branch on H (4:1) and
-    W; this is the depth branch's exact ratio at serving size."""
+    W; this is the depth branch's exact ratio at serving size. Its tap
+    tables either built by this call or kept from an earlier one."""
     x = rng.random((1, 544, 960, 3)).astype(np.float32)
     xt, xj = both(x)
+    drop_tables((544, 136, False), (960, 240, False))
+    if tables == "kept":
+        resize_bilinear(xt, 136, 240)
     close(resize_bilinear(xt, 136, 240), jax_resize_bilinear(xj, 136, 240))
+
+
+def drop_tables(*keys):
+    for n_in, n_out, cubic in keys:
+        resize._TABLES.pop((n_in, n_out, cubic, torch.device("cpu")), None)
+
+
+def gather_from_numpy(x, axis, out_size, cubic):
+    """One axis's tap gather with its tables made in numpy and handed over
+    at each call: the resize before its tables were kept."""
+    idx, w = resize._resample_weights(x.shape[axis], out_size, cubic)
+    idx_t, w_t = torch.from_numpy(idx), torch.from_numpy(w)
+    wshape = [1] * x.ndim
+    wshape[axis] = out_size
+    out = None
+    for k in range(idx.shape[1]):
+        term = (x.index_select(axis, idx_t[:, k]).to(torch.float32)
+                * w_t[:, k].reshape(wshape))
+        out = term if out is None else out + term
+    return out
+
+
+@pytest.mark.parametrize("kind,shape,out", [
+    ("bilinear", (1, 544, 960, 3), (136, 240)),    # the depth branch's 1/4
+    ("bilinear", (1, 11, 13, 2), (7, 19)),
+    ("bicubic", (2, 32, 48, 3), (8, 12)),          # degrade's MATLAB preset
+    ("bicubic", (32, 48), (64, 96)),
+    ("bicubic", (2, 3, 32, 48, 3), (32, 20)),
+])
+@pytest.mark.parametrize("tables", ["built", "kept"])
+def test_resize_with_kept_tables_is_the_uncached_resize(rng, kind, shape, out,
+                                                        tables):
+    """The resize reading its kept tap tables equals, bit for bit, the one
+    that made them from numpy at each call, H then W."""
+    x = torch.from_numpy(rng.random(shape).astype(np.float32))
+    h_ax = x.ndim - 3 if x.ndim >= 3 else 0
+    cubic = kind == "bicubic"
+    fn = resize.resize_bicubic if cubic else resize_bilinear
+    drop_tables((shape[h_ax], out[0], cubic), (shape[h_ax + 1], out[1], cubic))
+    if tables == "kept":
+        fn(x, *out)
+    want = gather_from_numpy(gather_from_numpy(x, h_ax, out[0], cubic),
+                             h_ax + 1, out[1], cubic)
+    assert torch.equal(fn(x, *out), want)
+
+
+@pytest.mark.parametrize("n_in,n_out,cubic", [
+    (544, 136, False), (960, 240, False), (13, 7, False),
+    (32, 8, True), (48, 96, True), (48, 20, True)])
+def test_resize_tables_are_the_numpy_tables(n_in, n_out, cubic):
+    """Each tap's kept index and weight vector is ``_resample_weights``'
+    column, exactly, built once for each (sizes, kernel, device)."""
+    idx, w = resize._resample_weights(n_in, n_out, cubic)
+    taps = resize._device_tables(n_in, n_out, cubic, torch.device("cpu"))
+    assert len(taps) == idx.shape[1]
+    for k, (i, wk) in enumerate(taps):
+        assert i.dtype == torch.int64 and wk.dtype == torch.float32
+        assert i.is_contiguous() and wk.is_contiguous()
+        assert np.array_equal(i.numpy(), idx[:, k])
+        assert np.array_equal(wk.numpy(), w[:, k])
+    assert resize._device_tables(n_in, n_out, cubic, torch.device("cpu")) is taps
 
 
 @pytest.mark.parametrize("r", [2, 4])

@@ -361,12 +361,12 @@ def test_trace_check_needs_the_card(monkeypatch, argv):
 
 @contextlib.contextmanager
 def _no_ranges():
-    saved = vsr.record_function, sr_head.record_function
-    vsr.record_function = sr_head.record_function = lambda name: contextlib.nullcontext()
+    saved = vsr.stage, sr_head.stage
+    vsr.stage = sr_head.stage = lambda name: contextlib.nullcontext()
     try:
         yield
     finally:
-        vsr.record_function, sr_head.record_function = saved
+        vsr.stage, sr_head.stage = saved
 
 
 @pytest.mark.parametrize("layout", [{}, dict(warp_features=True,

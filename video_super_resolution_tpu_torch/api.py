@@ -3,7 +3,9 @@
 - ``build_model``: the VSR model with random weights from a seed (or load
   weights carried from the JAX package with ``weights.from_jax_params``).
 - ``upscale_window``: (B, T, h, w, 3) LR window -> (B, 4h, 4w, 3).
-- ``eval_step``: the same forward, f32 output clipped to [0, 1].
+- ``eval_step``: the same forward, f32 output clipped to [0, 1]; on a CUDA
+  model, replayed from CUDA graphs once a call repeats the previous call's
+  input shape, dtype and weights (``release_graphs`` frees them).
 - ``upscale_clip``: (T, h, w, 3) frames -> (T, 4h, 4w, 3), one window
   a frame through ``eval_step``.
 - ``estimate_and_align``: flow of each neighbor onto the reference and the
@@ -31,7 +33,10 @@ where there is one). Without an active profiler a range costs a few us.
 ``upscale_clip.frames`` and ``upscale_clip.bytes_back`` count the HR frames
 returned and their bytes copied off the model's device, and
 ``upscale_clip.frames_staged`` those that went through a pinned buffer,
-profiler or not.
+profiler or not; ``eval_step.calls``, ``eval_step.replays`` and
+``eval_step.captures`` count the calls, those that replayed CUDA graphs and
+those that captured them first. A replay runs each graph inside the model's
+ranges it was captured in, below ``eval_step.forward``.
 
 They run on the CUDA device unless the caller passes ``device="cpu"``;
 without a GPU a CUDA request raises instead of running on the CPU.
@@ -47,6 +52,7 @@ from torch.profiler import record_function
 
 from video_super_resolution_tpu_torch.config import VSRConfig
 from video_super_resolution_tpu_torch.data.dataset import sliding_window_indices
+from video_super_resolution_tpu_torch.models import graphs
 from video_super_resolution_tpu_torch.models.common import init_params, pad_to_multiple
 from video_super_resolution_tpu_torch.models.flow_net import FlowNet
 from video_super_resolution_tpu_torch.models.vsr import VSRModel
@@ -91,13 +97,35 @@ def upscale_window(model: VSRModel, window: torch.Tensor,
 
 @torch.no_grad()
 def eval_step(model: VSRModel, lr: torch.Tensor) -> torch.Tensor:
-    """Forward, f32 prediction clipped to [0, 1]."""
+    """Forward, f32 prediction clipped to [0, 1]: a fresh tensor that no
+    later call overwrites. On a CUDA model the forward replays CUDA graphs
+    once a call repeats the previous call's key (``models/graphs.py``)."""
+    counts = _EVAL_STEP
+    counts.calls += 1
+    run = graphs.graphed(model)
     with record_function("eval_step.upload"):
-        lr = lr.to(_device_of(model))
+        lr, mode = run.upload(model, lr, _device_of(model))
     with record_function("eval_step.forward"):
-        pred = model(lr)
+        pred = run.forward(model, lr, mode)
         del lr
-        return pred.to(torch.float32).clamp(0.0, 1.0)
+        out = pred.to(torch.float32).clamp(0.0, 1.0)
+    if mode in ("capture", "replay"):
+        counts.replays += 1
+    if mode == "capture":
+        counts.captures += 1
+    return out
+
+
+eval_step.calls = 0      # calls
+eval_step.replays = 0    # of those, calls whose forward replayed CUDA graphs
+eval_step.captures = 0   # of those, calls that captured the graphs first
+_EVAL_STEP = eval_step   # the counters' owner, whatever rebinds ``eval_step``
+
+
+def release_graphs(model: VSRModel) -> None:
+    """Free the CUDA graphs ``eval_step`` captured for ``model`` and their
+    memory pool; its next call at the same key runs eagerly again."""
+    graphs.release(model)
 
 
 def upscale_clip(model: VSRModel, frames: Union[np.ndarray, torch.Tensor],

@@ -15,20 +15,20 @@ upsampling styles (``ModelConfig.sr_head_style``), as the JAX package's
   3-channel f32 conv ``Conv_1`` at full resolution (``SmallOutConv``: the
   JAX package leaves it to XLA as ``nn.Conv``); plus the bilinear skip.
 
-The forward runs in three ``record_function`` ranges, the JAX package's
-``stop_stage`` names: ``sr_trunk`` (the trunk through its global skip),
-``sr_skip`` (the bilinear skip) and ``sr_conv`` (``espcn_mid`` and the
-subpixel conv and shuffle, or the upsample stages, ``Conv_1`` and the skip
-add). The skip enters the subpixel conv's epilogue, so it is computed
-first: the port's order is ``sr_trunk, sr_skip, sr_conv`` where the JAX
-package's is ``sr_trunk, sr_conv, sr_skip``.
+The forward runs in three ``record_function`` ranges (``models/graphs.py``'s
+``stage``), the JAX package's ``stop_stage`` names: ``sr_trunk`` (the trunk
+through its global skip), ``sr_skip`` (the bilinear skip) and ``sr_conv``
+(``espcn_mid`` and the subpixel conv and shuffle, or the upsample stages,
+``Conv_1`` and the skip add). The skip enters the subpixel conv's
+epilogue, so it is computed first: the port's order is ``sr_trunk,
+sr_skip, sr_conv`` where the JAX package's is ``sr_trunk, sr_conv,
+sr_skip``.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from video_super_resolution_tpu_torch.models.common import (
     ConvLReLU,
@@ -36,6 +36,7 @@ from video_super_resolution_tpu_torch.models.common import (
     RoutedConv,
     SmallOutConv,
 )
+from video_super_resolution_tpu_torch.models.graphs import stage
 from video_super_resolution_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 from video_super_resolution_tpu_torch.ops.resize import (
     resize_bilinear,
@@ -80,7 +81,7 @@ class SRHead(nn.Module):
 
     def forward(self, fused: torch.Tensor, ref_frame: torch.Tensor) -> torch.Tensor:
         """fused (B, H, W, F), ref_frame (B, H, W, 3) -> (B, sH, sW, 3) f32."""
-        with record_function("sr_trunk"):
+        with stage("sr_trunk"):
             h = self.ConvLReLU_0(fused.to(self.dtype))
             trunk_in = h
             for i in range(self.blocks):
@@ -88,17 +89,17 @@ class SRHead(nn.Module):
             h = self.Conv_0(h) + trunk_in                  # global trunk skip
         if self.style == "two_stage":
             _, hh, ww, _ = ref_frame.shape
-            with record_function("sr_skip"):
+            with stage("sr_skip"):
                 skip = resize_bilinear(ref_frame.to(torch.float32),
                                        hh * self.scale, ww * self.scale)
-            with record_function("sr_conv"):
+            with stage("sr_conv"):
                 for u in range(self.scale // 2):
                     h = getattr(self, f"upsample_{u}")(h)
                 return self.Conv_1(h.to(torch.float32)) + skip
-        with record_function("sr_skip"):
+        with stage("sr_skip"):
             skip_ps = upsample_bilinear_ps(ref_frame.to(torch.float32),
                                            self.scale).contiguous()
-        with record_function("sr_conv"):
+        with stage("sr_conv"):
             if hasattr(self, "espcn_mid"):
                 h = self.espcn_mid(h)
             out = self.subpixel_conv(h.to(torch.float32), res=skip_ps)

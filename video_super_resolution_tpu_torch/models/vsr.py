@@ -16,7 +16,9 @@ JAX package's stages (``flow``, ``depth``, ``fd`` (the neighbours'
 frame or feature + depth concat), ``warp``, ``encode``, ``fusion``,
 ``sr``, and inside ``sr`` the head's ``sr_trunk``, ``sr_skip`` and
 ``sr_conv``), so a profile groups its device time by stage
-(``tools/profile_prefix.py``).
+(``tools/profile_prefix.py``). The ranges are ``models/graphs.py``'s
+``stage``: where ``api.eval_step`` captures the forward in CUDA graphs,
+they are also where one graph ends and the next begins.
 
 The forward is ``align`` (the stages up to the warp, on the whole frame)
 then ``reconstruct`` (the stages after it), which can also run on an H
@@ -29,7 +31,6 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from video_super_resolution_tpu_torch.config import ModelConfig
 from video_super_resolution_tpu_torch.models.common import (
@@ -40,6 +41,7 @@ from video_super_resolution_tpu_torch.models.common import (
 from video_super_resolution_tpu_torch.models.depth_net import DepthNet
 from video_super_resolution_tpu_torch.models.flow_net import FlowNet
 from video_super_resolution_tpu_torch.models.fusion import DepthGuidedFusion
+from video_super_resolution_tpu_torch.models.graphs import stage
 from video_super_resolution_tpu_torch.models.sr_head import SRHead
 from video_super_resolution_tpu_torch.ops.resize import resize_bilinear
 from video_super_resolution_tpu_torch.ops.warp import backward_warp
@@ -107,13 +109,13 @@ class VSRModel(nn.Module):
                                 ).reshape(b * n, h, w, 3)
 
         # flow of every neighbor, ref passed at its true batch (dedup form)
-        with record_function("flow"):
+        with stage("flow"):
             flows = self.flow_net(ref, nbrs_flat)                    # (B*N,H,W,2)
 
         # depth of all T frames, at 1/ddiv resolution
         frames_flat = window.reshape(b * t, h, w, 3)
         ddiv = cfg.depth_res_divisor or (2 if cfg.depth_at_half_res else 1)
-        with record_function("depth"):
+        with stage("depth"):
             if ddiv > 1:
                 d_low = self.depth_net(
                     resize_bilinear(frames_flat, h // ddiv, w // ddiv))
@@ -127,29 +129,29 @@ class VSRModel(nn.Module):
                "hw": (h0, w0)}
         if cfg.warp_features:
             # encode every frame, then warp features + depth (F + 1 channels)
-            with record_function("encode"):
+            with stage("encode"):
                 feats = self.encode(frames_flat).reshape(b, t, h, w, f)
             ref_feat = feats[:, center]
-            with record_function("fd"):
+            with stage("fd"):
                 nbr_feats = torch.stack([feats[:, i] for i in nbr_idx], dim=1)
                 nbr_depths = torch.stack([depths[:, i] for i in nbr_idx],
                                          dim=1)
                 fd = torch.cat([nbr_feats, nbr_depths.to(nbr_feats.dtype)],
                                dim=-1).reshape(b * n, h, w, f + 1)
-            with record_function("warp"):
+            with stage("warp"):
                 warped = backward_warp(fd, flows.contiguous())
             warped = warped.reshape(b, n, h, w, f + 1)
             out.update(ref_feat=ref_feat, warped_feats=warped[..., :f],
                        warped_depths=warped[..., f:])
         else:
             # warp frame + depth (4 channels); the tail encodes the frames
-            with record_function("fd"):
+            with stage("fd"):
                 nbr_depths = torch.stack([depths[:, i] for i in nbr_idx],
                                          dim=1)
                 fd = torch.cat([nbrs_flat,
                                 nbr_depths.reshape(b * n, h, w, 1)
                                 .to(nbrs_flat.dtype)], dim=-1)
-            with record_function("warp"):
+            with stage("warp"):
                 warped = backward_warp(fd, flows.contiguous())
             out.update(warped_frames=warped[..., :3],
                        warped_depths=warped[..., 3:].reshape(b, n, h, w, 1))
@@ -175,15 +177,15 @@ class VSRModel(nn.Module):
         else:
             b, n, h, w = warped_depths.shape[:4]
             warped_frames = a["warped_frames"][:, c:d]
-            with record_function("encode"):
+            with stage("encode"):
                 enc = self.encode(torch.cat([ref, warped_frames.to(ref.dtype)],
                                             dim=0))
             ref_feat = enc[:b]
             warped_feats = enc[b:].reshape(b, n, h, w, -1)
 
-        with record_function("fusion"):
+        with stage("fusion"):
             fused = self.fusion(ref_feat, warped_feats, ref_depth,
                                 warped_depths)
         hs = min(d, h0) - c
-        with record_function("sr"):
+        with stage("sr"):
             return self.sr_head(crop_to(fused, hs, w0), crop_to(ref, hs, w0))

@@ -31,7 +31,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C signatures: every function returns cudaGetLastError() after its launch
+# C signatures: every kernel entry returns cudaGetLastError() after its
+# launch, the capture probe its CUDA error code
 _SIGNATURES = {
     # x, w (prepared), bias (f32), res, out, split-K workspace, staging
     # scratch, fold, B, H, W, Cin, Cx, Cout, Npad, bn, kc, tw, splits,
@@ -43,6 +44,8 @@ _SIGNATURES = {
     "vsr_correlation": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     # img, flow (f32), out, B, H, W, C, zeros_padding, is_bf16, stream
     "vsr_warp": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # stream, out: nodes captured so far into the graph it is capturing
+    "vsr_captured_nodes": [_P, ctypes.POINTER(ctypes.c_ulonglong)],
 }
 
 _lock = threading.Lock()
@@ -142,6 +145,15 @@ def check_launch(name: str, rc: int) -> None:
     """Raise if a kernel's C entry returned a CUDA error code."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def captured_nodes(stream) -> int:
+    """Nodes captured so far into the CUDA graph that ``stream`` (a
+    ``torch.cuda.Stream``) is capturing; 0 when it captures nothing."""
+    count = ctypes.c_ulonglong(0)
+    check_launch("captured_nodes", lib().vsr_captured_nodes(
+        stream.cuda_stream, ctypes.byref(count)))
+    return count.value
 
 
 def stream_of(t) -> int:

@@ -18,6 +18,10 @@ different numeric path and is kept as one:
 replicate edges; separable tap gathers along H then W with weights computed
 once per shape. The JAX resizes' other presets (torch-style a=-0.75,
 align_corners, excluded edges, antialiased bilinear) are not ported.
+
+The tap gathers' index and weight tables are built once per (in size, out
+size, kernel, device) and kept on that device (``_device_tables``), so a
+resize copies nothing from the host after its first call at a shape.
 """
 
 from __future__ import annotations
@@ -66,17 +70,38 @@ def _resample_weights(in_size: int, out_size: int, cubic: bool = False):
     return idx, w.astype(np.float32)
 
 
-def _gather_axis(x: torch.Tensor, axis: int, idx: np.ndarray,
-                 w: np.ndarray) -> torch.Tensor:
-    """sum_k w[:, k] * x.take(idx[:, k], axis), tap by tap in f32."""
-    idx_t = torch.from_numpy(idx).to(x.device)
-    w_t = torch.from_numpy(w).to(x.device)
+# (in_size, out_size, cubic, device) -> the tap tables on that device. Never
+# evicted: a CUDA graph captured from a resize reads its tables' memory.
+_TABLES: dict = {}
+
+
+def _device_tables(in_size: int, out_size: int, cubic: bool,
+                   device: torch.device):
+    """``_resample_weights`` on ``device``, one (index (out,) int64, weight
+    (out,) f32) pair a tap, each contiguous: built and copied there once,
+    so that a resize issues no host-to-device copy (and can be captured in
+    a CUDA graph)."""
+    key = (in_size, out_size, cubic, device)
+    hit = _TABLES.get(key)
+    if hit is None:
+        idx, w = _resample_weights(in_size, out_size, cubic)
+        hit = tuple((torch.from_numpy(idx[:, k].copy()).to(device),
+                     torch.from_numpy(w[:, k].copy()).to(device))
+                    for k in range(idx.shape[1]))
+        _TABLES[key] = hit
+    return hit
+
+
+def _gather_axis(x: torch.Tensor, axis: int, out_size: int,
+                 cubic: bool = False) -> torch.Tensor:
+    """sum_k w[:, k] * x.take(idx[:, k], axis), tap by tap in f32, with
+    ``_resample_weights(x.shape[axis], out_size, cubic)``'s taps."""
     wshape = [1] * x.ndim
-    wshape[axis] = idx.shape[0]
+    wshape[axis] = out_size
     out = None
-    for k in range(idx.shape[1]):
-        g = x.index_select(axis, idx_t[:, k]).to(torch.float32)
-        term = g * w_t[:, k].reshape(wshape)
+    for idx, w in _device_tables(x.shape[axis], out_size, cubic, x.device):
+        g = x.index_select(axis, idx).to(torch.float32)
+        term = g * w.reshape(wshape)
         out = term if out is None else out + term
     return out
 
@@ -140,7 +165,7 @@ def _resample_axis(x: torch.Tensor, axis: int, out_size: int) -> torch.Tensor:
         shape[axis] = out_size
         shape.insert(axis + 1, 2)
         return x.to(torch.float32).reshape(shape).mean(dim=axis + 1)
-    return _gather_axis(x, axis, *_resample_weights(in_size, out_size))
+    return _gather_axis(x, axis, out_size)
 
 
 def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
@@ -165,6 +190,5 @@ def resize_bicubic(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     h_ax = x.ndim - 3 if x.ndim >= 3 else 0
     y = x
     for axis, size in ((h_ax, out_h), (h_ax + 1, out_w)):
-        y = _gather_axis(y, axis, *_resample_weights(y.shape[axis], size,
-                                                     cubic=True))
+        y = _gather_axis(y, axis, size, cubic=True)
     return y.to(dtype)

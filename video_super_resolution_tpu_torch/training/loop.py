@@ -166,6 +166,8 @@ def train(
                 last_eval = evaluate_all(
                     api.eval_step, state.model, eval_ds,
                     cfg.data.y_channel_eval, cfg.data.border_crop)
+                # the training steps that follow need the graphs' pool
+                api.release_graphs(state.model)
                 avg = last_eval["__average__"]
                 logger.log(step + 1, {"eval_psnr": avg["psnr"],
                                       "eval_ssim": avg["ssim"]},

@@ -17,7 +17,12 @@
   ``api.upscale_clip.frames`` (HR frames returned),
   ``api.upscale_clip.bytes_back`` (their bytes copied off the device) and
   ``api.upscale_clip.frames_staged`` (those that went through a pinned
-  buffer).
+  buffer). ``api.eval_step`` counts too: ``api.eval_step.calls``,
+  ``api.eval_step.replays`` (calls whose forward replayed the model's CUDA
+  graphs, ``models/graphs.py``) and ``api.eval_step.captures`` (calls that
+  captured them first). A replay runs each graph inside the model's ranges
+  it was captured in, and advances the kernel wrappers' ``launches`` by the
+  launches it holds.
 - ``correlation_roofline_ms`` / ``warp_roofline_ms`` /
   ``conv3x3_roofline_ms``: the least time an H100 SXM could take for the
   cost volume, the backward warp and the fused 3x3 conv, the larger of
