@@ -27,6 +27,7 @@ from video_super_resolution_tpu_torch.data.dataset import sliding_window_indices
 from video_super_resolution_tpu_torch.models.common import init_params
 from video_super_resolution_tpu_torch.models.vsr import VSRModel
 from video_super_resolution_tpu_torch.weights import from_jax_params, to_jax_params
+import torch_workers  # noqa: F401  caps torch's threads per xdist worker
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "video_super_resolution_tpu_torch").rglob("*.py"))

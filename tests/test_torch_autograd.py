@@ -31,6 +31,7 @@ from video_super_resolution_tpu_torch.ops.fused_conv import (
     prepare_conv3x3_weight,
 )
 from video_super_resolution_tpu_torch.ops.warp import backward_warp, warp_plain
+import torch_workers  # noqa: F401  caps torch's threads per xdist worker
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 

@@ -39,6 +39,7 @@ from video_super_resolution_tpu_torch.training.state import (
 )
 from video_super_resolution_tpu_torch.weights import from_jax_params, to_jax_params
 from test_parallel import TINY
+import torch_workers  # noqa: F401  caps torch's threads per xdist worker
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 MODEL_TOL = dict(rtol=2e-3, atol=5e-4)

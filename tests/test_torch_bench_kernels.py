@@ -41,6 +41,7 @@ from video_super_resolution_tpu_torch.tools import bench_warp as bw
 from video_super_resolution_tpu_torch.utils import profiling
 from video_super_resolution_tpu_torch.weights import from_jax_params
 from test_parallel import TINY
+import torch_workers  # noqa: F401  caps torch's threads per xdist worker
 
 F32_TOL = dict(rtol=1e-4, atol=1e-5)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)

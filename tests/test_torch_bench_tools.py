@@ -48,6 +48,7 @@ from video_super_resolution_tpu_torch.training.step import (
     make_train_step,
 )
 from test_parallel import TINY
+import torch_workers  # noqa: F401  caps torch's threads per xdist worker
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CLIPS = dict(n_clips=2, frames=3, h=48, w=64)
@@ -111,16 +112,6 @@ def tiny_cfg(**data) -> VSRConfig:
 WARM, LOADER_BATCHES = 2, (1, 4)
 
 
-@pytest.fixture(scope="module", autouse=True)
-def small_runs():
-    """One torch thread for the module: TINY steps on the CPU, beside
-    other test processes on the same cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 @pytest.fixture(scope="module")
 def jloader():
     """The JAX loader tool, loaded from its file (tools/ is not a package)
@@ -142,7 +133,7 @@ def clip_root(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def dispatch_rec(small_runs, clip_root, tmp_path_factory):
+def dispatch_rec(clip_root, tmp_path_factory):
     out = tmp_path_factory.mktemp("dispatch") / "rec.json"
     seen = []
 

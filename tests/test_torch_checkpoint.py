@@ -12,6 +12,7 @@ from video_super_resolution_tpu_torch.config import ModelConfig, TrainConfig, VS
 from video_super_resolution_tpu_torch.training import checkpoint as ckpt
 from video_super_resolution_tpu_torch.training.checkpoint import CheckpointManager
 from video_super_resolution_tpu_torch.training.state import create_train_state
+import torch_workers  # noqa: F401  caps torch's threads per xdist worker
 
 TINY = dict(pyramid_channels=(8, 16), flow_estimator_channels=(16, 16),
             context_channels=(16, 16), depth_channels=8, depth_levels=2,

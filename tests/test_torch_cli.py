@@ -19,6 +19,7 @@ from video_super_resolution_tpu import cli as jcli
 from video_super_resolution_tpu_torch import cli
 from video_super_resolution_tpu_torch.config import VSRConfig
 from video_super_resolution_tpu_torch.data.synthetic import moving_gradient_clip
+import torch_workers  # noqa: F401  caps torch's threads per xdist worker
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY_SET = [

@@ -20,6 +20,7 @@ from video_super_resolution_tpu_torch.ops.fused_conv import (
     prepare_conv3x3_weight,
     unpack_conv3x3_weight,
 )
+import torch_workers  # noqa: F401  caps torch's threads per xdist worker
 
 BF16, F32 = torch.bfloat16, torch.float32
 

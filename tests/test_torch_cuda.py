@@ -22,6 +22,7 @@ from video_super_resolution_tpu_torch.ops.fused_conv import (
 )
 from video_super_resolution_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 from video_super_resolution_tpu_torch.ops.warp import backward_warp, warp_plain
+import torch_workers  # noqa: F401  caps torch's threads per xdist worker
 
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
        torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}

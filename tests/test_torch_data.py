@@ -20,6 +20,7 @@ from video_super_resolution_tpu_torch.data import dataset as pds
 from video_super_resolution_tpu_torch.data import synthetic as psyn
 from video_super_resolution_tpu_torch.data.degrade import degrade_bicubic
 from video_super_resolution_tpu_torch.ops.resize import resize_bicubic
+import torch_workers  # noqa: F401  caps torch's threads per xdist worker
 
 RESIZE_TOL = dict(rtol=0, atol=1e-6)
 

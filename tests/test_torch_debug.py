@@ -20,6 +20,7 @@ from video_super_resolution_tpu_torch.models import common as pc
 from video_super_resolution_tpu_torch.models.vsr import VSRModel
 from video_super_resolution_tpu_torch.utils import debug, profiling
 from video_super_resolution_tpu_torch.weights import from_jax_params
+import torch_workers  # noqa: F401  caps torch's threads per xdist worker
 
 
 def test_find_nonfinite_matches_jax():

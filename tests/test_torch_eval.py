@@ -29,6 +29,7 @@ from video_super_resolution_tpu_torch.models.common import init_params
 from video_super_resolution_tpu_torch.models.vsr import VSRModel
 from video_super_resolution_tpu_torch.training.step import make_eval_step
 from video_super_resolution_tpu_torch.weights import to_jax_params
+import torch_workers  # noqa: F401  caps torch's threads per xdist worker
 
 TINY = dict(pyramid_channels=(8, 16), flow_estimator_channels=(16, 16),
             context_channels=(16, 16), depth_channels=8, depth_levels=2,

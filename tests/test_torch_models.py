@@ -39,6 +39,7 @@ from video_super_resolution_tpu_torch.models.flow_net import (
 from video_super_resolution_tpu_torch.models.fusion import DepthGuidedFusion, Score1
 from video_super_resolution_tpu_torch.models.sr_head import SRHead
 from video_super_resolution_tpu_torch.weights import from_jax_params
+import torch_workers  # noqa: F401  caps torch's threads per xdist worker
 
 MODULE_TOL = dict(rtol=1e-4, atol=1e-5)
 FLOW_TOL = dict(rtol=2e-3, atol=2e-4)

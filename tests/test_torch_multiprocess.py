@@ -37,6 +37,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "tools"))
 from multiprocess_smoke import local_batch, small_cfg  # noqa: E402
 from multiprocess_train_worker import global_batch_for_step  # noqa: E402
+import torch_workers  # noqa: E402, F401  caps torch's threads per xdist worker
 
 
 def _port_cfg(jcfg) -> VSRConfig:

@@ -35,6 +35,7 @@ from video_super_resolution_tpu_torch.data.dataset import ClipDataset, list_clip
 from video_super_resolution_tpu_torch.data.synthetic import moving_gradient_clip
 from video_super_resolution_tpu_torch.training import loop
 from video_super_resolution_tpu_torch.training.step import decode_batch
+import torch_workers  # noqa: F401  caps torch's threads per xdist worker
 
 
 @pytest.fixture(scope="module")

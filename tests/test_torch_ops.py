@@ -38,6 +38,7 @@ from video_super_resolution_tpu_torch.ops.pixel_shuffle import pixel_shuffle, pi
 from video_super_resolution_tpu_torch.ops import resize
 from video_super_resolution_tpu_torch.ops.resize import resize_bilinear, upsample_bilinear_ps
 from video_super_resolution_tpu_torch.ops.warp import backward_warp, warp_plain
+import torch_workers  # noqa: F401  caps torch's threads per xdist worker
 
 RTOL, ATOL = 1e-4, 1e-5
 

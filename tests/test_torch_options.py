@@ -33,6 +33,7 @@ from video_super_resolution_tpu_torch.models.vsr import VSRModel
 from video_super_resolution_tpu_torch.ops import warp as warp_mod
 from video_super_resolution_tpu_torch.ops.losses import charbonnier_loss
 from video_super_resolution_tpu_torch.weights import from_jax_params, to_jax_params
+import torch_workers  # noqa: F401  caps torch's threads per xdist worker
 
 MODEL_TOL = dict(rtol=2e-3, atol=5e-4)
 MODULE_TOL = dict(rtol=1e-4, atol=1e-5)

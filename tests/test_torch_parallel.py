@@ -48,6 +48,7 @@ from video_super_resolution_tpu_torch.training.state import create_train_state
 from video_super_resolution_tpu_torch.training.step import make_train_step
 from video_super_resolution_tpu_torch.weights import flax_path, from_jax_params
 from test_parallel import TINY, _reference_sliding
+import torch_workers  # noqa: F401  caps torch's threads per xdist worker
 
 JAX_TOL = dict(rtol=2e-3, atol=5e-4)
 PORT_TOL = dict(rtol=1e-4, atol=1e-5)

@@ -33,6 +33,7 @@ from PIL import Image
 from video_super_resolution_tpu.data import native_loader as jnative
 
 from video_super_resolution_tpu_torch.data import native_loader as pnative
+import torch_workers  # noqa: F401  caps torch's threads per xdist worker
 
 INV255 = np.float32(1.0 / 255.0)
 SIG = b"\x89PNG\r\n\x1a\n"

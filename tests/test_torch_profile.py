@@ -39,6 +39,7 @@ from video_super_resolution_tpu_torch.models import sr_head, vsr
 from video_super_resolution_tpu_torch.tools import profile_model as pm
 from video_super_resolution_tpu_torch.tools import profile_prefix as pp
 from video_super_resolution_tpu_torch.weights import to_jax_params
+import torch_workers  # noqa: F401  caps torch's threads per xdist worker
 
 SMALL = dict(pyramid_channels=(8, 16), flow_estimator_channels=(16, 16),
              context_channels=(16, 16), depth_channels=8, depth_levels=2,

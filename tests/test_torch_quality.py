@@ -26,6 +26,7 @@ from video_super_resolution_tpu.training.step import make_eval_step as jax_eval_
 
 from video_super_resolution_tpu_torch.tools import quality_serving as qs
 from video_super_resolution_tpu_torch.weights import from_jax_params
+import torch_workers  # noqa: F401  caps torch's threads per xdist worker
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 TINY = dict(pyramid_channels=(8, 16), flow_estimator_channels=(16, 16),

@@ -24,6 +24,7 @@ from video_super_resolution_tpu.training import state as jstate
 
 from video_super_resolution_tpu_torch.tools import quality_ab as qa
 from video_super_resolution_tpu_torch.weights import from_jax_params
+import torch_workers  # noqa: F401  caps torch's threads per xdist worker
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 

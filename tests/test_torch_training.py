@@ -52,6 +52,7 @@ from video_super_resolution_tpu_torch.training.step import (
     make_train_step,
 )
 from video_super_resolution_tpu_torch.weights import to_jax_params
+import torch_workers  # noqa: F401  caps torch's threads per xdist worker
 
 MODEL_TOL = dict(rtol=2e-3, atol=5e-4)
 TINY = dict(pyramid_channels=(8, 16), flow_estimator_channels=(16, 16),

@@ -22,6 +22,7 @@ from video_super_resolution_tpu_torch.config import ModelConfig, serving_config
 from video_super_resolution_tpu_torch.models.common import init_params
 from video_super_resolution_tpu_torch.models.vsr import VSRModel
 from video_super_resolution_tpu_torch.weights import from_jax_params, to_jax_params
+import torch_workers  # noqa: F401  caps torch's threads per xdist worker
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "e2e.npz")
 MODEL_TOL = dict(rtol=2e-3, atol=5e-4)
