@@ -3,6 +3,7 @@ run, and how weights cross from the JAX package's flax param tree; the
 serving entry's ``record_function`` ranges and counters."""
 
 import ast
+import ctypes
 import dataclasses
 import pathlib
 import re
@@ -54,13 +55,13 @@ def test_port_never_imports_jax_or_the_jax_package(path):
 
 
 HOST_SOURCES = [ROOT / "video_super_resolution_tpu_torch" / "csrc" / name
-                for name in ("vsr_dataio.cc", "png_decode.h")]
+                for name in ("vsr_dataio.cc", "png_decode.h", "vsr_hostmem.cc")]
 
 
 @pytest.mark.parametrize("path", HOST_SOURCES, ids=lambda p: p.name)
 def test_native_data_path_includes_only_std_and_its_own_headers(path):
     """The port's C++ data path (``data/native_loader.py`` builds it with
-    g++) includes C++ standard headers (``<name>``, no extension) and its
+    g++), and the clip recycler (``runtime/hostmem.py``), include C++ standard headers (``<name>``, no extension) and its
     own headers beside it: no libpng, no zlib, nothing of the JAX
     package's ``native/``."""
     includes = re.findall(r'#\s*include\s*([<"])([^>"]+)', path.read_text())
@@ -370,6 +371,237 @@ def test_upscale_clip_frees_each_frame_before_the_next_forward(tiny_model,
     monkeypatch.setattr(api, "eval_step", eval_step)
     out = api.upscale_clip(tiny_model, clip_frames(4))
     assert out.shape[0] == 4 and all(r() is None for r in held)
+
+
+# ------------------------------------------------ the recycled clip memory
+
+class Recycler:
+    """``runtime/hostmem.py`` whose ``stats`` count the blocks lent and the
+    hits since the test started: arrays of earlier tests may still hold
+    blocks, and the hits run from the process's start."""
+
+    def __init__(self, hostmem):
+        self.hostmem = hostmem
+        self.base = hostmem.stats()
+
+    def __getattr__(self, name):
+        return getattr(self.hostmem, name)
+
+    def stats(self):
+        idle, lent, hits = self.hostmem.stats()
+        return idle, lent - self.base[1], hits - self.base[2]
+
+
+@pytest.fixture
+def recycler():
+    """The recycler with no idle block and its floor at 0, so the tiny
+    clips' blocks are kept; both restored after."""
+    from video_super_resolution_tpu_torch.runtime import hostmem
+
+    floor = ctypes.c_size_t.in_dll(hostmem.load(), "vsr_hostmem_floor")
+    saved = floor.value
+    hostmem.release()
+    floor.value = 0
+    yield Recycler(hostmem)
+    floor.value = saved
+    hostmem.release()
+
+
+def eval_step_stack(model, frames, edge_mode="replicate"):
+    t = len(frames)
+    return np.stack([api.eval_step(model, torch.from_numpy(frames[
+        sliding_window_indices(t, c, model.cfg.window, edge_mode)][None])
+    )[0].numpy() for c in range(t)])
+
+
+def handler_name(a):
+    try:
+        from numpy._core.multiarray import get_handler_name
+    except ImportError:                         # numpy < 2
+        from numpy.core.multiarray import get_handler_name
+    return get_handler_name(a)
+
+
+@pytest.mark.parametrize("t", [1, 4])
+def test_a_clip_after_a_dropped_one_is_recycled(tiny_model, recycler, t):
+    """Once the caller drops a clip, the next clip that fits takes its
+    block: ``frames_recycled`` rises by its frames, and it is still a
+    fresh, writeable, C-contiguous f32 array that owns its data, equal to
+    the per-frame ``eval_step`` stack bit for bit."""
+    first = api.upscale_clip(tiny_model, clip_frames(t))
+    address, nbytes = first.ctypes.data, first.nbytes
+    first.fill(np.nan)              # the next clip has to overwrite it all
+    del first
+    assert recycler.stats()[:2] == (nbytes, 0)
+    frames = clip_frames(t + 7)[:t]
+    before = api.upscale_clip.frames_recycled
+    out = api.upscale_clip(tiny_model, frames)
+    assert api.upscale_clip.frames_recycled - before == t
+    assert out.ctypes.data == address and recycler.stats()[:2] == (0, 1)
+    assert out.dtype == np.float32 and out.shape == (t, 64, 96, 3)
+    assert out.flags.c_contiguous and out.flags.writeable and out.flags.owndata
+    assert np.array_equal(out, eval_step_stack(tiny_model, frames))
+
+
+HOLDERS = {"clip": lambda a: a, "view": lambda a: a[1:],
+           "torch": torch.from_numpy, "memoryview": memoryview}
+
+
+@pytest.mark.parametrize("holder", list(HOLDERS))
+def test_a_live_clip_keeps_its_block(tiny_model, recycler, holder):
+    """A clip, a view of it or an export of it that is still alive keeps
+    the clip's block out of the cache: the next clip gets other memory,
+    and the held bytes stay as they were. Once the holder is dropped, the
+    block is recycled."""
+    first = api.upscale_clip(tiny_model, clip_frames(3))
+    held, kept = HOLDERS[holder](first), first[1:].copy()
+    del first
+    assert recycler.stats()[0] == 0
+    before = api.upscale_clip.frames_recycled
+    second = api.upscale_clip(tiny_model, clip_frames(3, 16, 24)[::-1].copy())
+    assert api.upscale_clip.frames_recycled == before
+    held_array = np.asarray(held)
+    assert not np.shares_memory(second, held_array)
+    assert np.array_equal(held_array[-2:], kept)
+    del held, held_array
+    assert recycler.stats()[0] == second.nbytes
+    del second
+    api.upscale_clip(tiny_model, clip_frames(2))
+    assert api.upscale_clip.frames_recycled - before == 2
+
+
+def test_a_longer_clip_gets_fresh_memory_and_its_block_is_kept(tiny_model,
+                                                                recycler):
+    """A clip longer than the idle block gets fresh memory; when it is
+    dropped, its larger block replaces the idle one."""
+    before = api.upscale_clip.frames_recycled
+    short = api.upscale_clip(tiny_model, clip_frames(2))
+    small = short.nbytes
+    del short
+    long_ = api.upscale_clip(tiny_model, clip_frames(5))
+    assert api.upscale_clip.frames_recycled == before
+    assert recycler.stats()[0] == small
+    del long_
+    assert recycler.stats()[0] == 5 * small // 2
+    api.upscale_clip(tiny_model, clip_frames(3))
+    assert api.upscale_clip.frames_recycled - before == 3
+
+
+@pytest.mark.parametrize("floor", ["lowered", "default"])
+def test_at_most_one_block_is_idle(recycler, floor):
+    """Of the blocks freed, only the largest is kept, and only at or over
+    the floor (64 MiB unless lowered): after three are freed, one request
+    takes the idle block and the next gets fresh memory. ``empty`` leaves
+    numpy's default handler on every other array."""
+    unit = 1 << 20
+    if floor == "default":
+        ctypes.c_size_t.in_dll(recycler.load(), "vsr_hostmem_floor").value = 64 * unit
+    blocks = [recycler.empty((n * unit,), np.uint8)[0] for n in (48, 80, 72)]
+    assert recycler.stats()[:2] == (0, 3)
+    assert handler_name(blocks[0]) == "vsr_clip_recycler"
+    assert handler_name(np.empty(3)) == handler_name(np.ones((2, 2)))
+    assert handler_name(np.empty(3)) == "default_allocator"
+    del blocks[:]
+    assert recycler.stats()[:2] == (80 * unit, 0)
+    a, hit_a = recycler.empty((16 * unit,), np.uint8)
+    b, hit_b = recycler.empty((16 * unit,), np.uint8)
+    assert (hit_a, hit_b) == (True, False)
+    assert recycler.stats()[:2] == (0, 2)
+    del a, b
+    # a held the 80 MiB block, which is kept again; b's 16 MiB is not
+    assert recycler.stats()[0] == 80 * unit
+
+
+def test_zeros_and_resize_through_the_recycler(recycler):
+    """numpy's calloc through the handler zeroes a recycled block; its
+    realloc keeps the bytes, in place when the block has room, and the
+    block's capacity follows it to the idle slot."""
+    n = 1 << 20
+    a, _ = recycler.empty((4 * n,), np.uint8)
+    a.fill(7)
+    del a
+    previous = recycler._set_handler(recycler._capsule)
+    try:
+        z = np.zeros((n,), np.uint8)            # calloc: takes the idle block
+    finally:
+        recycler._set_handler(previous)
+    assert recycler.stats()[1:] == (1, 1) and not z.any()
+    z[:] = 3
+    address = z.ctypes.data
+    z.resize((2 * n,), refcheck=False)          # realloc within the block
+    assert z.ctypes.data == address and (z[:n] == 3).all()
+    z.resize((8 * n,), refcheck=False)          # realloc past it
+    assert (z[:n] == 3).all() and recycler.stats()[:2] == (0, 1)
+    del z
+    assert recycler.stats()[:2] == (8 * n, 0)
+
+
+def test_threads_never_share_a_live_block(recycler):
+    """More threads than cores allocate, fill, check and drop blocks
+    through the recycler at a short switch interval: no live array's bytes
+    are another's, and at the end no block is lent and at most one idle."""
+    import os
+    import sys
+    import threading
+
+    n, rounds = 1 << 20, 40
+    workers = 2 * (os.cpu_count() or 1)
+    bad = []
+
+    def work(tag):
+        for _ in range(rounds):
+            a, _ = recycler.empty((n,), np.uint8)
+            a.fill(tag)
+            if not (a == tag).all():
+                bad.append(tag)
+            del a
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(i + 1,))
+                   for i in range(workers)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads)
+    assert not bad
+    idle, lent, _ = recycler.stats()
+    assert lent == 0 and idle == n
+
+
+EXIT_WITH_A_LIVE_CLIP = """
+import numpy as np, torch
+from video_super_resolution_tpu_torch import api
+from video_super_resolution_tpu_torch.config import ModelConfig, TrainConfig, VSRConfig
+cfg = VSRConfig(model=ModelConfig(**{tiny!r}),
+                train=TrainConfig(compute_dtype="float32"))
+model = api.build_model(cfg, device="cpu", seed=4)
+frames = np.random.default_rng(0).random((2, 16, 24, 3)).astype(np.float32)
+dropped = api.upscale_clip(model, frames)
+del dropped
+clip = api.upscale_clip(model, frames)
+view = clip[1:]
+print(clip.shape)
+"""
+
+
+def test_exit_with_a_live_clip_is_clean(tmp_path):
+    """A process that exits while a clip (and a view of it) is alive exits
+    0 and writes nothing to stderr: the handler's name and functions
+    outlive every array they free."""
+    import subprocess
+    import sys
+
+    proc = subprocess.run([sys.executable, "-c",
+                           EXIT_WITH_A_LIVE_CLIP.format(tiny=TINY)],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0 and proc.stderr == "", proc.stderr
+    assert proc.stdout.strip() == "(2, 64, 96, 3)"
 
 
 # ------------------------------------------- the forward from CUDA graphs

@@ -687,6 +687,45 @@ def test_graphed_upscale_clip_equals_eager(gen, head):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("head", ["espcn", "two_stage_wf"])
+def test_recycled_clip_on_the_card_equals_a_fresh_one(gen, head):
+    """At full width, 68x120, 4 frames, with the recycler's floor at 0: a
+    clip staged into the block of a dropped one (filled with NaN first)
+    equals the fresh clip bit for bit, and ``frames_recycled`` counts its
+    frames."""
+    import ctypes
+
+    from video_super_resolution_tpu_torch import api
+    from video_super_resolution_tpu_torch.config import serving_config
+    from video_super_resolution_tpu_torch.runtime import hostmem
+
+    cfg = (serving_config() if head == "espcn" else serving_config(
+        sr_head_style="two_stage", warp_features=True))
+    model = api.build_model(cfg, "cuda", seed=0)
+    frames = np.random.default_rng(6).random((4, 68, 120, 3), dtype=np.float32)
+    floor = ctypes.c_size_t.in_dll(hostmem.load(), "vsr_hostmem_floor")
+    saved = floor.value
+    hostmem.release()
+    floor.value = 0
+    try:
+        recycled = api.upscale_clip.frames_recycled
+        fresh = api.upscale_clip(model, frames)
+        assert api.upscale_clip.frames_recycled == recycled
+        want = fresh.copy()
+        fresh.fill(np.nan)
+        del fresh
+        staged = api.upscale_clip.frames_staged
+        again = api.upscale_clip(model, frames)
+        assert api.upscale_clip.frames_recycled - recycled == 4
+        assert api.upscale_clip.frames_staged - staged == 4
+        assert again.flags.owndata and again.flags.writeable
+        assert np.array_equal(again, want)
+    finally:
+        floor.value = saved
+        hostmem.release()
+
+
+@pytest.mark.cuda
 def test_graphs_recapture_after_a_weight_update(gen):
     """An in-place weight update changes the key: the next call runs
     eagerly on the new weights, the one after captures them anew, and both

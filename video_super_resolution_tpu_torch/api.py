@@ -14,7 +14,10 @@
   streaming program over a mesh (``parallel/streaming.py``).
 
 ``upscale_clip`` writes each HR frame once into its slot of one clip
-array, allocated when the first frame's shape is known. On a CUDA model a
+array, allocated when the first frame's shape is known, through
+``runtime/hostmem.py``: once a caller has dropped an earlier clip whose
+block fits, the clip takes that block, its pages already faulted, in place
+of fresh pages that fault on the write. On a CUDA model a
 frame goes through one of two reused pinned host buffers: its copy off the
 device is queued on the current stream behind its forward, and the host
 moves it into the clip only after it has issued the next frame's forward,
@@ -33,6 +36,7 @@ where there is one). Without an active profiler a range costs a few us.
 ``upscale_clip.frames`` and ``upscale_clip.bytes_back`` count the HR frames
 returned and their bytes copied off the model's device, and
 ``upscale_clip.frames_staged`` those that went through a pinned buffer,
+and ``upscale_clip.frames_recycled`` those written into a recycled block,
 profiler or not; ``eval_step.calls``, ``eval_step.replays`` and
 ``eval_step.captures`` count the calls, those that replayed CUDA graphs and
 those that captured them first. A replay runs each graph inside the model's
@@ -57,6 +61,7 @@ from video_super_resolution_tpu_torch.models.common import init_params, pad_to_m
 from video_super_resolution_tpu_torch.models.flow_net import FlowNet
 from video_super_resolution_tpu_torch.models.vsr import VSRModel
 from video_super_resolution_tpu_torch.ops.warp import backward_warp
+from video_super_resolution_tpu_torch.runtime import hostmem
 from video_super_resolution_tpu_torch.runtime.dtypes import DTypePolicy
 
 Device = Union[str, torch.device]
@@ -142,7 +147,7 @@ def upscale_clip(model: VSRModel, frames: Union[np.ndarray, torch.Tensor],
         dev = _device_of(model)
         staged = dev.type == "cuda"
         stream = torch.cuda.current_stream(dev) if staged else None
-        clip = slots = None
+        clip = slots = recycled = None
         done = [None, None]          # a staged frame's copy-finished event
 
         def drain(c: int) -> None:
@@ -153,6 +158,7 @@ def upscale_clip(model: VSRModel, frames: Union[np.ndarray, torch.Tensor],
                     upscale_clip.frames_staged += 1
             upscale_clip.frames += 1
             upscale_clip.bytes_back += clip[c].nbytes
+            upscale_clip.frames_recycled += recycled
 
         for c in range(t):
             with record_function("upscale_clip.gather"):
@@ -163,7 +169,8 @@ def upscale_clip(model: VSRModel, frames: Union[np.ndarray, torch.Tensor],
             hr = eval_step(model, lr)
             del lr
             if clip is None:
-                clip = np.empty((t,) + tuple(hr.shape[1:]), np.float32)
+                clip, recycled = hostmem.empty((t,) + tuple(hr.shape[1:]),
+                                               np.float32)
                 if staged:
                     slots = [torch.empty(hr.shape[1:], dtype=torch.float32,
                                          pin_memory=True)
@@ -187,6 +194,7 @@ def upscale_clip(model: VSRModel, frames: Union[np.ndarray, torch.Tensor],
 upscale_clip.frames = 0          # HR frames returned
 upscale_clip.bytes_back = 0      # bytes of those frames copied off the device
 upscale_clip.frames_staged = 0   # of those, frames that went through a pinned buffer
+upscale_clip.frames_recycled = 0  # of those, frames written into a recycled block
 
 
 def build_flow_net(cfg: Optional[VSRConfig] = None, device: Device = "cuda",

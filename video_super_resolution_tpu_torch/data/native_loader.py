@@ -18,31 +18,30 @@ linked with ``-lpthread`` only.
 At first use it is compiled with ``native/Makefile``'s CXXFLAGS into
 ``_build/dataio-<hash>/libvsr_dataio.so`` inside this package
 (git-ignored), keyed by a hash of both sources and the flags, as
-``ops/_build.py`` builds the CUDA kernels. ``missing()`` names ``g++``
-where the machine lacks it; ``available()`` is True when nothing is
-missing. A failed compile or link raises with g++'s output.
+``ops/_build.py`` builds the CUDA kernels (``runtime/gxx.py``).
+``missing()`` names ``g++`` where the machine lacks it; ``available()`` is
+True when nothing is missing. A failed compile or link raises with g++'s
+output.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import os
 import shutil
-import subprocess
-import tempfile
 import threading
 from pathlib import Path
 from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 
+from video_super_resolution_tpu_torch.runtime import gxx
+
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "vsr_dataio.cc"
 HEADER = _PKG / "csrc" / "png_decode.h"       # included by SOURCE
 BUILD_ROOT = _PKG / "_build"
-LIB_NAME = "libvsr_dataio.so"
 # native/Makefile's CXXFLAGS; its LDFLAGS without libpng and zlib
 CXXFLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall"]
 LDFLAGS = ["-shared", "-lpthread"]
@@ -65,27 +64,7 @@ def available() -> bool:
 def build() -> Path:
     """Compile the library if this source and these flags are not built
     yet; return its path. Raises with g++'s output on failure."""
-    if missing():
-        raise RuntimeError(f"cannot build {SOURCE.name}: missing "
-                           f"{', '.join(missing())}")
-    h = hashlib.sha256(" ".join(CXXFLAGS + LDFLAGS).encode())
-    h.update(SOURCE.read_bytes())
-    h.update(HEADER.read_bytes())
-    out_dir = BUILD_ROOT / ("dataio-" + h.hexdigest()[:16])
-    lib_path = out_dir / LIB_NAME
-    if lib_path.exists():
-        return lib_path
-    out_dir.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-        tmp_lib = Path(tmp) / LIB_NAME
-        proc = subprocess.run(
-            ["g++", *CXXFLAGS, "-o", str(tmp_lib), str(SOURCE), *LDFLAGS],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"g++ failed to build {SOURCE.name}:\n"
-                               f"{proc.stdout}")
-        os.replace(tmp_lib, lib_path)       # atomic: concurrent builds agree
-    return lib_path
+    return gxx.build(BUILD_ROOT, "dataio", SOURCE, [HEADER], CXXFLAGS, LDFLAGS)
 
 
 def _load() -> ctypes.CDLL:
