@@ -244,6 +244,96 @@ def test_warp_kernel_odd_channels_at_feature_warp_shape(gen, dtype, mode, c):
     assert torch.equal(out, warp_plain(img, flow, mode))
 
 
+# BasicVSR's trunks at 540x960 cut to a few rows: the 67 -> 64 lift with
+# its LeakyReLU (Cin padded to 72), the residual blocks' conv1 with a ReLU
+# epilogue (slope 0) and conv2 with the identity and the residual
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("cin,slope,res", [(67, 0.1, False), (64, 0.0, False),
+                                           (64, 1.0, True)])
+def test_conv3x3_kernel_basicvsr_trunk_specs(gen, dtype, cin, slope, res):
+    x = rn(gen, (1, 34, 960, cin), dtype)
+    wt = rn(gen, (64, cin, 3, 3)) / (9 * cin) ** 0.5
+    bias = rn(gen, (64,), dtype)
+    r = rn(gen, (1, 34, 960, 64), dtype) if res else None
+    before = fused_conv3x3.launches
+    out = fused_conv3x3(x, wt, bias, slope, 1, r)
+    assert fused_conv3x3.launches == before + 1
+    close(out, conv3x3_plain(x, wt, bias, slope, 1, r), dtype)
+    if slope == 0.0:
+        assert bool((out >= 0).all())
+
+
+# BasicVSR's warps: SPyNet's frames (C = 3, f32, border) at its finest and
+# coarsest levels of a 540x960 clip's pairs, and the hidden state (C = 64,
+# bf16, zeros) at 540x960
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,mode", [
+    ((6, 544, 960, 3), torch.float32, "border"),
+    ((6, 17, 30, 3), torch.float32, "border"),
+    ((1, 540, 960, 64), torch.bfloat16, "zeros")])
+def test_warp_kernel_basicvsr_shapes(gen, shape, dtype, mode):
+    img = rn(gen, shape, dtype)
+    flow = rn(gen, (*shape[:3], 2)) * 3.0
+    flow[:, ::7] *= 20.0
+    before = backward_warp.launches
+    out = backward_warp(img, flow, mode)
+    assert backward_warp.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(out, warp_plain(img, flow, mode))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [3, 6])
+def test_basicvsr_on_the_card_matches_reference(gen, t):
+    """BasicVSR at its published widths on 136x240 clips through
+    ``api.upscale_clip``, against the plain f32 reference on the card (TF32
+    off) at the same seeded weights: the f32 model within the composed
+    model's tolerances, the bf16 model within the benchmark cell's limits
+    (``vsr_bench/limits/basicvsr.wholeclip.540p.json``)."""
+    import json
+    import math
+    import pathlib
+
+    from video_super_resolution_tpu_torch import api
+    from video_super_resolution_tpu_torch.config import BasicVSRConfig
+    from video_super_resolution_tpu_torch.reference import basicvsr as reference
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    limits = json.loads((root / "vsr_bench" / "limits"
+                         / "basicvsr.wholeclip.540p.json").read_text())
+    m = {"num_feat": 64, "num_block": 30}
+    w = {}
+    for name, shape in reference.param_shapes(m).items():
+        std = 0.01 if len(shape) == 1 else 1.0 / math.sqrt(math.prod(shape[1:]))
+        w[name] = rn(gen, shape) * std
+    for name, factor in reference.init_scale(m).items():
+        w[name] *= factor
+    frames = torch.rand((t, 136, 240, 3), generator=gen, device="cuda")
+    with torch.no_grad():
+        want = reference.forward(w, m, frames).clamp(0.0, 1.0)
+    staged, clips = api.upscale_clip.frames_staged, api.upscale_clip.whole_clips
+    for dtype in ("float32", "bfloat16"):
+        model = api.build_model(BasicVSRConfig(compute_dtype=dtype, **m), "cuda")
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                p.copy_(w[name])
+        launches = fused_conv3x3.launches, backward_warp.launches
+        out = torch.from_numpy(api.upscale_clip(model, frames.cpu().numpy()))
+        assert fused_conv3x3.launches - launches[0] == t * (2 * 61 + 3)
+        # the states' warps, then SPyNet's five finer levels
+        assert backward_warp.launches - launches[1] == 2 * (t - 1) + 5
+        d = out.cuda() - want
+        if dtype == "float32":
+            torch.testing.assert_close(out.cuda(), want, rtol=2e-3, atol=5e-4)
+        else:
+            assert float(d.square().mean(dim=(1, 2, 3)).sqrt().max()) \
+                <= limits["hr_rms"]
+            assert float(d.abs().max()) <= limits["hr_max"]
+    assert api.upscale_clip.frames_staged - staged == 2 * t
+    assert api.upscale_clip.whole_clips - clips == 2
+
+
 @pytest.mark.cuda
 def test_kernels_reject_what_they_do_not_take(gen):
     x = rn(gen, (1, 8, 8, 16))

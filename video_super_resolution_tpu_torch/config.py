@@ -5,6 +5,8 @@ training, mesh), kept field-for-field identical so that a config serialized
 by either package loads in the other. The serving forward reads
 ``ModelConfig`` and the compute dtype of ``TrainConfig``; training reads
 the rest, and the parallel modes read ``MeshConfig`` (``runtime/mesh.py``).
+``BasicVSRConfig`` is the port's own, a second architecture that the JAX
+package does not have.
 """
 
 from __future__ import annotations
@@ -161,6 +163,19 @@ class VSRConfig:
 
     def replace(self, **kw) -> "VSRConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class BasicVSRConfig:
+    """BasicVSR (Chan et al., CVPR 2021, arXiv:2012.02181) as BasicSR's
+    REDS training file sets it (``num_feat: 64, num_block: 30``): a 6-level
+    SPyNet and x4 upsampling, neither of which BasicSR makes configurable.
+    ``api.build_model`` builds ``models/basicvsr.py:BasicVSR`` from it;
+    ``api.upscale_clip`` serves a clip of it whole."""
+
+    num_feat: int = 64                  # propagation and upsampler width
+    num_block: int = 30                 # residual blocks in each trunk
+    compute_dtype: str = "bfloat16"     # activations; parameters stay f32
 
 
 def serving_config(**model_overrides: Any) -> VSRConfig:
